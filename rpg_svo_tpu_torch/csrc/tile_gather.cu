@@ -1,51 +1,95 @@
-// K1: batched integer tile gather from the padded, stacked image pyramid.
+// K1: batched integer tile gather from the padded, stacked image pyramid,
+// with the origin clamp inside the kernel.
 //
 // Replaces the TPU kernel rpg_svo_tpu/ops/pallas_tiles.py::_tile_kernel
-// (launched by _gather, called by gather_tiles).  Per item it copies one
-// (tile_h, tile_w) float tile whose top-left corner is (y0g, x0c) in the
-// (Hs, Ws) stack; the caller has already clamped the origin into the item's
-// pyramid level and offset it by the level's first row.
+// (launched by _gather, called by gather_tiles).  Per item it clamps the
+// requested level to [0, L-1] and the requested origin (x0, y0) into that
+// level, [0, max(W - tw, 0)] x [0, max(H - th, 0)], offsets it by the
+// level's first row in the (Hs, Ws) stack, copies the (th, tw) float tile
+// and writes the clamped origins.  The level table (width, height, first
+// row per level) comes by value, so nothing is copied to the card per call.
 //
-// What bounds it on the card: bytes.  Each tile is a few hundred floats read
-// once and written once (about 1.2 KB for 17x17), so the whole call moves
-// well under a megabyte and is latency-bound at main-path sizes.  Design:
-// one warp per tile, lanes along the tile row, so each row load is one
-// contiguous, coalesced run of tile_w floats; rows loop inside the warp.
-// The TPU's 128-lane aligned load plus two rolls is a VMEM layout trick and
-// is not carried over.  The copy is exact: results are bit-identical to the
-// flat-index gather of ops/tiles.py::gather_plain.
+// What bounds it on the card: bytes in principle (17x17x256 moves about
+// 0.6 MB, 0.18 us at 3.35 TB/s), launch latency in fact: the main path's
+// calls are a few thousand floats each.  Design: one thread per output
+// element, consecutive threads along the tile row (each row one coalesced
+// run), so a 17x17x256 call spreads over about 290 blocks of 256 threads
+// and gives every SM work; each thread re-derives its item's clamp from
+// three cached int loads instead of waiting on a per-tile leader.  The
+// thread of element (0, 0) writes the item's origins.  The TPU's 128-lane
+// aligned load plus two rolls is a VMEM layout trick and is not carried
+// over.  The copy is exact: tiles and origins are bit-identical to the
+// torch clamp plus flat-index gather of ops/tiles.py::gather_tiles_plain.
 
 #include <cuda_runtime.h>
 
+// Kernel-parameter structs live outside the unnamed namespace: the
+// extern "C" entry point takes them, and must keep external linkage.
+constexpr int kMaxLevels = 8;
+
+struct LevelTable {
+  int n;                 // levels in use
+  int w[kMaxLevels];     // level widths
+  int h[kMaxLevels];     // level heights
+  int off[kMaxLevels];   // first row of each level in the stack
+};
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 256;
 
-__global__ void tile_gather_kernel(const float* __restrict__ stack, int ws,
-                                   const int* __restrict__ y0g,
-                                   const int* __restrict__ x0c,
-                                   float* __restrict__ out, int n, int th,
-                                   int tw) {
-  const int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (item >= n) return;
-  const float* src = stack + static_cast<long long>(y0g[item]) * ws + x0c[item];
-  float* dst = out + static_cast<long long>(item) * th * tw;
-  for (int r = 0; r < th; ++r) {
-    const float* srow = src + static_cast<long long>(r) * ws;
-    for (int c = lane; c < tw; c += 32) dst[r * tw + c] = srow[c];
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_gather_kernel(const float* __restrict__ stack, int ws, LevelTable tab,
+                   const int* __restrict__ level, long long level_stride,
+                   const int* __restrict__ x0, long long x0_stride,
+                   const int* __restrict__ y0, long long y0_stride,
+                   float* __restrict__ out, int* __restrict__ org, int n,
+                   int th, int tw) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int per_item = th * tw;
+  if (e >= static_cast<long long>(n) * per_item) return;
+  const int item = static_cast<int>(e / per_item);
+  const int rem = static_cast<int>(e - static_cast<long long>(item) *
+                                           per_item);
+  const int r = rem / tw, c = rem - r * tw;
+  const int lv = clampi(level[item * level_stride], 0, tab.n - 1);
+  // static indices only: the table stays in the parameter bank
+  int W = tab.w[0], H = tab.h[0], off = tab.off[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLevels; ++k)
+    if (k == lv) {
+      W = tab.w[k];
+      H = tab.h[k];
+      off = tab.off[k];
+    }
+  const int xc = clampi(x0[item * x0_stride], 0, max(W - tw, 0));
+  const int yc = clampi(y0[item * y0_stride], 0, max(H - th, 0));
+  out[e] = stack[static_cast<long long>(off + yc + r) * ws + xc + c];
+  if (rem == 0) {
+    org[item] = xc;
+    org[n + item] = yc;
   }
 }
 
 }  // namespace
 
-extern "C" int tile_gather(const float* stack, int ws, const int* y0g,
-                           const int* x0c, float* out, int n, int th, int tw,
-                           cudaStream_t stream) {
-  if (n > 0) {
-    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    tile_gather_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        stack, ws, y0g, x0c, out, n, th, tw);
+extern "C" int tile_gather(const float* stack, int ws, LevelTable tab,
+                           const int* level, long long level_stride,
+                           const int* x0, long long x0_stride, const int* y0,
+                           long long y0_stride, float* out, int* org, int n,
+                           int th, int tw, cudaStream_t stream) {
+  const long long total = static_cast<long long>(n) * th * tw;
+  if (total > 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    tile_gather_kernel<<<blocks, kThreads, 0, stream>>>(
+        stack, ws, tab, level, level_stride, x0, x0_stride, y0, y0_stride,
+        out, org, n, th, tw);
   }
   return static_cast<int>(cudaGetLastError());
 }

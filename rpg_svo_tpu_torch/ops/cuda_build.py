@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ``ctypes``.  Libraries are
 named by a hash of their source, so an edited source is rebuilt and an
 unchanged one is reused.  They go to ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``).  No fast math: the alignment kernel's
-rollback depends on IEEE NaN from ``sqrt`` of a negative pivot.
+rollback depends on NaN from the reciprocal square root of a negative pivot
+and on NaN-propagating comparisons.  ``function`` declares each entry
+point's ``ctypes`` signature once.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("tile_gather", "level_gn")
+KERNELS = ("tile_gather", "sparse_align")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -78,6 +81,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of the kernel library of the same name,
+    with its ``argtypes`` and an ``int`` (``cudaError_t``) result declared
+    once, at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(load(name), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current stream on a CUDA device, as an int
+    (the stream the kernels launch on), without building a Stream object
+    per call."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

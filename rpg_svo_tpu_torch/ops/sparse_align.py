@@ -4,13 +4,14 @@ Port of ``rpg_svo_tpu/ops/sparse_align.py`` (SparseImgAlign,
 svo/src/sparse_img_align.cpp:43-258): coarse-to-fine inverse-compositional
 Gauss-Newton on 4x4-patch photometric residuals of all tracked features.
 
-Per level, ``_precompute_level`` cuts each reference patch with its border
-from an 8x8 tile of the reference pyramid (kernel K1 on the card) and
-builds the fixed inverse-compositional Jacobians; the Gauss-Newton loop
-then runs either as kernel K2 (``align_kernel``: CUDA tensors, pinhole
-camera, no robust weights) or as ``_level_gn`` here.  This port reads both
-pyramids as padded stacks; the JAX package's per-pixel-gather path for
-raw images is not ported.
+On CUDA tensors with a pinhole camera and no robust weights the whole
+alignment is one launch of kernel K2 (``align_kernel``).  Everything else
+runs ``sparse_img_align_plain``: per level, ``_precompute_level`` cuts each
+reference patch with its border from an 8x8 tile of the reference pyramid
+and builds the fixed inverse-compositional Jacobians, and ``_level_gn``
+runs the Gauss-Newton loop on 17x17 tiles of the current pyramid.  This
+port reads both pyramids as padded stacks; the JAX package's
+per-pixel-gather path for raw images is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from rpg_svo_tpu_torch.geometry.triangulation import jacobian_xyz2uv
 from rpg_svo_tpu_torch.ops import align_kernel
 from rpg_svo_tpu_torch.ops.align_kernel import (
     PATCH_HALFSIZE, PATCH_SIZE, TILE)
+from rpg_svo_tpu_torch.ops.tiles import MAX_LEVELS, gather_tiles
 
 PATCH_AREA = PATCH_SIZE * PATCH_SIZE
 
@@ -34,6 +36,7 @@ class AlignResult(NamedTuple):
     n_tracked: torch.Tensor   # int32: tracked features (measurements / 16)
     H: torch.Tensor           # (6, 6) final-level GN Hessian
     chi2: torch.Tensor        # final mean squared residual
+    iters: torch.Tensor       # (MAX_LEVELS,) int32: GN iterations per level
 
 
 def _window(tile: torch.Tensor, o: torch.Tensor):
@@ -62,15 +65,15 @@ def _window(tile: torch.Tensor, o: torch.Tensor):
 
 
 def _precompute_level(cam_fx: float, feats_px, feats_f, feats_depth,
-                      feats_valid, level: int, ref_pad):
+                      feats_valid, level: int, ref_pad, gather=gather_tiles):
     """Reference patches, fixed IC Jacobians and validity at one level:
     (ref_patch (N, 16), jac (N, 16, 6), valid (N,)).
 
-    The bordered 6x6 patch is one 8x8 tile per feature plus a 4-tap blend
-    with the feature's shared fractional offset; a clamped tile origin
-    means the bordered patch leaves the level, so the feature is invalid.
+    The bordered 6x6 patch is one 8x8 tile per feature (cut by ``gather``,
+    a ``gather_tiles`` signature) plus a 4-tap blend with the feature's
+    shared fractional offset; a clamped tile origin means the bordered
+    patch leaves the level, so the feature is invalid.
     """
-    from rpg_svo_tpu_torch.ops.tiles import gather_tiles
     scale = 1.0 / (2.0 ** level)
     uv = feats_px * scale
     B = PATCH_SIZE + 2
@@ -78,8 +81,7 @@ def _precompute_level(cam_fx: float, feats_px, feats_f, feats_depth,
     want = fx0 - (PATCH_HALFSIZE + 1)
     lv = torch.full((uv.shape[0],), level, dtype=torch.int32,
                     device=uv.device)
-    t, x0c, y0c = gather_tiles(ref_pad, lv, want[:, 0], want[:, 1],
-                               B + 2, B + 2)
+    t, x0c, y0c = gather(ref_pad, lv, want[:, 0], want[:, 1], B + 2, B + 2)
     okb = (x0c == want[:, 0]) & (y0c == want[:, 1])
     frac = uv - fx0.to(torch.float32)
     wx = frac[:, 0][:, None, None]
@@ -103,7 +105,8 @@ def _precompute_level(cam_fx: float, feats_px, feats_f, feats_depth,
 def _gn_loop(tile, base, p_ref, ref_patch, jac, valid, T_init: SE3, cam,
              scale: float, n_iter: int, eps: float, robust: bool = False):
     """The GN iterations of one level on gathered tiles; carries the best
-    (lowest-chi2) pose.  Returns (T, n_meas int32, H, chi2).
+    (lowest-chi2) pose.  Returns (T, n_meas int32, H, chi2, iterations
+    run int32).
 
     A fixed ``n_iter`` loop with a ``done`` mask: once done, every carried
     value is frozen, so this equals the reference's early-exit loop."""
@@ -165,18 +168,46 @@ def _gn_loop(tile, base, p_ref, ref_patch, jac, valid, T_init: SE3, cam,
     better = chi2 <= best_chi2
     T_out = T.where(better, best_T)
     chi2_out = torch.minimum(chi2, best_chi2)
-    return T_out, torch.sum(m).to(torch.int32), H_last, chi2_out
+    return T_out, torch.sum(m).to(torch.int32), H_last, chi2_out, i
 
 
 def _level_gn(cam, T_init: SE3, p_ref, ref_patch, jac, valid, level: int,
-              n_iter: int, eps: float, cur_pad, robust: bool = False):
-    """GN at one level on the padded current pyramid (tiles by K1 on the
-    card, the loop in PyTorch ops)."""
+              n_iter: int, eps: float, cur_pad, robust: bool = False,
+              gather=gather_tiles):
+    """GN at one level on the padded current pyramid (tiles gathered around
+    the initial projections by ``gather``, the loop in PyTorch ops)."""
     tiles, x0c, y0c = align_kernel.level_tiles(cur_pad, cam, T_init, p_ref,
-                                               level)
+                                               level, gather)
     base = torch.stack([x0c, y0c], dim=-1).to(torch.float32)
     return _gn_loop(tiles, base, p_ref, ref_patch, jac, valid, T_init, cam,
                     1.0 / (2.0 ** level), n_iter, eps, robust=robust)
+
+
+def sparse_img_align_plain(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
+                           feats_px, feats_f, feats_depth, feats_valid,
+                           max_level: int = 4, min_level: int = 2,
+                           n_iter: int = 30, eps: float = 1e-7,
+                           robust: bool = False,
+                           gather=gather_tiles) -> AlignResult:
+    """K2's plain twin, and the path of CPU tensors, other cameras and
+    robust weights: per level ``_precompute_level`` then ``_level_gn``.
+    Held against K2 on the card, it takes ``gather=gather_tiles_plain``,
+    so that no kernel under test computes the reference."""
+    T = T_cur_ref_init
+    p_ref = feats_f * feats_depth[:, None]
+    n_meas = H = chi2 = None
+    iters = torch.zeros((MAX_LEVELS,), dtype=torch.int32,
+                        device=feats_px.device)
+    for level in range(max_level, min_level - 1, -1):
+        ref_patch, jac, valid = _precompute_level(
+            cam.fx, feats_px, feats_f, feats_depth, feats_valid, level,
+            ref_pad, gather)
+        T, n_meas, H, chi2, iters[level] = _level_gn(
+            cam, T, p_ref, ref_patch, jac, valid, level, n_iter, eps,
+            cur_pad, robust=robust, gather=gather)
+    n_tracked = torch.div(n_meas, PATCH_AREA, rounding_mode="floor") \
+        .to(torch.int32)
+    return AlignResult(T, n_tracked, H, chi2, iters)
 
 
 def sparse_img_align(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
@@ -186,24 +217,13 @@ def sparse_img_align(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
                      robust: bool = False) -> AlignResult:
     """Coarse-to-fine sparse image alignment; returns the refined T_cur_ref.
 
-    On CUDA tensors a pinhole camera without robust weights runs kernel K2
-    per level; everything else (and every CPU tensor) runs ``_level_gn``."""
-    use_kernel = align_kernel.use_align_kernel(cam, cur_pad, robust)
-    T = T_cur_ref_init
-    p_ref = feats_f * feats_depth[:, None]
-    n_meas = H = chi2 = None
-    for level in range(max_level, min_level - 1, -1):
-        ref_patch, jac, valid = _precompute_level(
-            cam.fx, feats_px, feats_f, feats_depth, feats_valid, level,
-            ref_pad)
-        if use_kernel:
-            T, n_meas, H, chi2 = align_kernel.level_gn(
-                cur_pad, cam, T, p_ref, ref_patch, jac, valid, level,
-                n_iter, eps)
-        else:
-            T, n_meas, H, chi2 = _level_gn(
-                cam, T, p_ref, ref_patch, jac, valid, level, n_iter, eps,
-                cur_pad, robust=robust)
-    n_tracked = torch.div(n_meas, PATCH_AREA, rounding_mode="floor") \
-        .to(torch.int32)
-    return AlignResult(T, n_tracked, H, chi2)
+    On CUDA tensors a pinhole camera without robust weights runs all levels
+    in one launch of kernel K2; everything else (and every CPU tensor) runs
+    ``sparse_img_align_plain``."""
+    if align_kernel.use_align_kernel(cam, cur_pad, robust):
+        return AlignResult(*align_kernel.sparse_align_kernel(
+            ref_pad, cur_pad, cam, T_cur_ref_init, feats_px, feats_f,
+            feats_depth, feats_valid, max_level, min_level, n_iter, eps))
+    return sparse_img_align_plain(
+        ref_pad, cur_pad, cam, T_cur_ref_init, feats_px, feats_f,
+        feats_depth, feats_valid, max_level, min_level, n_iter, eps, robust)

@@ -8,9 +8,10 @@ relies on equal shapes.
 
 ``gather_tiles`` clamps each requested origin into its level (so every tile
 is fully backed by image content; callers read validity from the clamped
-origins), offsets it by the level's first row, and copies the tiles.  The
-copy is kernel K1 (``csrc/tile_gather.cu``) for a CUDA stack and its plain
-twin ``gather_plain`` (a flat-index gather) for a CPU stack.
+origins), offsets it by the level's first row, and copies the tiles.  For
+a CUDA stack all of that is one launch of kernel K1
+(``csrc/tile_gather.cu``); for a CPU stack it is the plain twin
+``gather_tiles_plain`` (a torch clamp and a flat-index gather).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from rpg_svo_tpu_torch.ops import cuda_build
 
 TAIL_ROWS = 40
+MAX_LEVELS = 8          # the kernels' level-table capacity
 
 
 def padded_layout(shapes: Sequence[Tuple[int, int]]):
@@ -47,6 +49,27 @@ def _level_table(shapes: Tuple[Tuple[int, int], ...], device: str):
     tab = np.stack([np.asarray([w for _, w in shapes], np.int32),
                     np.asarray([h for h, _ in shapes], np.int32), offs])
     return torch.from_numpy(tab).to(device)
+
+
+class LevelTable(ctypes.Structure):
+    """(W, H, first row) per level, passed by value to the kernels
+    (``LevelTable`` in ``csrc/tile_gather.cu`` and ``csrc/sparse_align.cu``).
+    """
+    _fields_ = [("n", ctypes.c_int), ("w", ctypes.c_int * MAX_LEVELS),
+                ("h", ctypes.c_int * MAX_LEVELS),
+                ("off", ctypes.c_int * MAX_LEVELS)]
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_table(shapes: Tuple[Tuple[int, int], ...]) -> LevelTable:
+    if len(shapes) > MAX_LEVELS:
+        raise ValueError(f"the kernels take at most {MAX_LEVELS} levels")
+    _, _, offs = padded_layout(shapes)
+    tab = LevelTable()
+    tab.n = len(shapes)
+    for l, ((h, w), o) in enumerate(zip(shapes, offs)):
+        tab.w[l], tab.h[l], tab.off[l] = w, h, int(o)
+    return tab
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +125,17 @@ class PaddedPyramid:
         """(3, L) int32 device table: widths, heights, first rows."""
         return _level_table(self.shapes, str(self.stack.device))
 
+    def kernel_table(self) -> "LevelTable":
+        """The same table as the kernels' by-value struct."""
+        return _kernel_table(self.shapes)
 
-def gather_plain(stack: torch.Tensor, y0g: torch.Tensor, x0c: torch.Tensor,
-                 tile_h: int, tile_w: int) -> torch.Tensor:
-    """K1's plain twin: (N, tile_h, tile_w) tiles by a flat-index gather
-    (as ``pallas_tiles.gather_tiles``' XLA fallback)."""
-    Ws = stack.shape[1]
-    r = torch.arange(tile_h, dtype=torch.int64, device=stack.device)
-    c = torch.arange(tile_w, dtype=torch.int64, device=stack.device)
-    yy = y0g.to(torch.int64)[:, None, None] + r[None, :, None]
-    xx = x0c.to(torch.int64)[:, None, None] + c[None, None, :]
-    return stack.reshape(-1)[yy * Ws + xx]
+
+_K1_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, LevelTable,
+                ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p)
 
 
 class _TileGather:
@@ -121,39 +144,67 @@ class _TileGather:
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, stack: torch.Tensor, y0g: torch.Tensor,
-                 x0c: torch.Tensor, tile_h: int,
-                 tile_w: int) -> torch.Tensor:
+    def __call__(self, pyr: PaddedPyramid, level: torch.Tensor,
+                 x0: torch.Tensor, y0: torch.Tensor, tile_h: int,
+                 tile_w: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``gather_tiles`` in one launch: the clamp runs in the kernel,
+        which writes the tiles and both clamped origins.  Takes (N,) int32
+        views of any stride (a stride-0 expanded level too)."""
+        stack = pyr.stack
         if not stack.is_cuda:
             raise ValueError("tile_gather kernel needs CUDA tensors")
-        n = int(y0g.shape[0])
-        if stack.dtype != torch.float32 or stack.dim() != 2 \
+        if stack.dtype is not torch.float32 or stack.dim() != 2 \
                 or not stack.is_contiguous():
             raise ValueError("stack must be a contiguous (Hs, Ws) float32")
-        for name, a in (("y0g", y0g), ("x0c", x0c)):
-            if a.device != stack.device or a.dtype != torch.int32 \
-                    or a.shape != (n,) or not a.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous (N,) int32 "
-                                 f"on {stack.device}")
+        n = int(x0.shape[0])
+        if not (level.dtype is x0.dtype is y0.dtype is torch.int32) \
+                or not (level.shape == x0.shape == y0.shape == (n,)) \
+                or not (level.device == x0.device == y0.device
+                        == stack.device):
+            raise ValueError(f"level, x0, y0 must be (N,) int32 tensors on "
+                             f"{stack.device}")
         if tile_w > stack.shape[1] or tile_h > TAIL_ROWS + 8:
             raise ValueError("tile larger than the padded layout backs")
         out = torch.empty((n, tile_h, tile_w), dtype=torch.float32,
                           device=stack.device)
-        lib = cuda_build.load("tile_gather")
-        fn = lib.tile_gather
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        err = fn(stack.data_ptr(), int(stack.shape[1]), y0g.data_ptr(),
-                 x0c.data_ptr(), out.data_ptr(), n, int(tile_h), int(tile_w),
-                 torch.cuda.current_stream(stack.device).cuda_stream)
+        org = torch.empty((2, n), dtype=torch.int32, device=stack.device)
+        fn = cuda_build.function("tile_gather", _K1_ARGTYPES)
+        err = fn(stack.data_ptr(), int(stack.shape[1]), pyr.kernel_table(),
+                 level.data_ptr(), level.stride(0), x0.data_ptr(),
+                 x0.stride(0), y0.data_ptr(), y0.stride(0), out.data_ptr(),
+                 org.data_ptr(), n, int(tile_h), int(tile_w),
+                 cuda_build.raw_stream(stack.device))
         cuda_build.check(err, "tile_gather")
         self.launches += 1
-        return out
+        return out, org[0], org[1]
 
 
 tile_gather_kernel = _TileGather()
+
+
+def gather_tiles_plain(pyr: PaddedPyramid, level: torch.Tensor,
+                       x0: torch.Tensor, y0: torch.Tensor, tile_h: int,
+                       tile_w: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's plain twin: the clamp as torch ops against the device level
+    table, then a flat-index gather (as ``pallas_tiles.gather_tiles``' XLA
+    fallback)."""
+    tab = pyr.level_table()
+    lv = torch.clamp(level.to(torch.int64), 0, len(pyr.shapes) - 1)
+    W, H, off = tab[0][lv], tab[1][lv], tab[2][lv]
+    zero = torch.zeros_like(W)
+    x0c = torch.clamp(x0.to(torch.int32), zero,
+                      torch.clamp(W - tile_w, min=0))
+    y0c = torch.clamp(y0.to(torch.int32), zero,
+                      torch.clamp(H - tile_h, min=0))
+    dev = pyr.stack.device
+    r = torch.arange(tile_h, dtype=torch.int64, device=dev)
+    c = torch.arange(tile_w, dtype=torch.int64, device=dev)
+    yy = (y0c + off).to(torch.int64)[:, None, None] + r[None, :, None]
+    xx = x0c.to(torch.int64)[:, None, None] + c[None, None, :]
+    tiles = pyr.stack.reshape(-1)[yy * pyr.stack.shape[1] + xx]
+    return tiles, x0c, y0c
 
 
 def gather_tiles(pyr: PaddedPyramid, level: torch.Tensor, x0: torch.Tensor,
@@ -163,21 +214,8 @@ def gather_tiles(pyr: PaddedPyramid, level: torch.Tensor, x0: torch.Tensor,
 
     (x0, y0) are requested origins in LEVEL coords (int32); they are clamped
     into the level.  Returns (tiles, x0c, y0c) with the clamped origins
-    (int32).  A CUDA stack goes through kernel K1, a CPU stack through its
-    plain twin."""
-    tab = pyr.level_table()
-    lv = torch.clamp(level.to(torch.int64), 0, len(pyr.shapes) - 1)
-    W, H, off = tab[0][lv], tab[1][lv], tab[2][lv]
-    zero = torch.zeros_like(W)
-    x0c = torch.clamp(x0.to(torch.int32), zero,
-                      torch.clamp(W - tile_w, min=0))
-    y0c = torch.clamp(y0.to(torch.int32), zero,
-                      torch.clamp(H - tile_h, min=0))
-    y0g = (y0c + off).contiguous()
-    x0c = x0c.contiguous()
+    (int32).  A CUDA stack goes through kernel K1 (one launch, nothing
+    else), a CPU stack through its plain twin."""
     if pyr.stack.is_cuda:
-        tiles = tile_gather_kernel(pyr.stack.contiguous(), y0g, x0c,
-                                   tile_h, tile_w)
-    else:
-        tiles = gather_plain(pyr.stack, y0g, x0c, tile_h, tile_w)
-    return tiles, x0c, y0c
+        return tile_gather_kernel(pyr, level, x0, y0, tile_h, tile_w)
+    return gather_tiles_plain(pyr, level, x0, y0, tile_h, tile_w)

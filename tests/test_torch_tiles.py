@@ -143,7 +143,7 @@ def test_wrapper_refuses_a_cpu_tensor_for_the_kernel(pyr):
     _, _, tp = pyr
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        ttiles.tile_gather_kernel(tp.stack, z, z, 17, 17)
+        ttiles.tile_gather_kernel(tp, z, z, z, 17, 17)
 
 
 
