@@ -1,24 +1,30 @@
-"""The fused tracking step, and the first-frame seeding.
+"""The fused per-frame step, and the first-frame seeding.
 
-Port of ``rpg_svo_tpu/core/fused.py`` for stages 1-6 of the per-frame
-step, run with ``cfg.ablate`` holding "kf" and "df" (the keyframe
-insertion, seed detection, depth filter and local BA come in later
-slices; until then ``vo_step`` raises without them):
+Port of ``rpg_svo_tpu/core/fused.py``: the whole per-frame update of the
+JAX ``_vo_step`` on the card,
 
 1. the padded pyramid of the new image;
 2. sparse image alignment against the last frame (or, relocalizing, the
-   closest keyframe) — kernel K2 per level on the card, tiles by K1;
-3. reprojection of the map with 2-D feature alignment;
+   closest keyframe) -- kernel K2, one launch;
+3. reprojection of the map with 2-D feature alignment (tiles by K1);
 4. pose optimization;
 5. structure optimization of the longest-unoptimized points;
-6. the quality gates and the stage transition.
+6. the quality gates and the keyframe policy;
+7. the depth-filter update (epipolar search, K1 for its align2D), every
+   ``df_update_every``-th frame and on keyframes, when a seed has work;
+8. on keyframes: insertion with feature tiles (K1), observation binding
+   and candidate promotion, local BA (accurate preset), seed detection
+   with tiles (K1) and seed init, and the map cap;
 
-The JAX step chooses branches with ``lax.cond``; here both small branches
-are computed and selected with ``torch.where``, and nothing in the step
-reads a value back to the host, so the step can later be captured in a
-CUDA graph.  ``seed_first_frame_with_depth`` ports
+and the stage transition.  ``cfg.ablate`` may stub "kf" (no keyframe is
+ever taken) and "df" (no seed update), as in JAX.
+
+The JAX step chooses branches with ``lax.cond``; here every branch runs
+and its result is kept or dropped with ``torch.where`` or a mask, so
+nothing in the step reads a value back to the host and the step can later
+be captured in a CUDA graph.  ``seed_first_frame_with_depth`` ports
 ``FrameHandler.set_first_frame_with_depth`` (core/pipeline.py:202-256) as
-a function returning a ``VOState``, with an empty seed pool.
+a function returning a ``VOState``.
 """
 
 from __future__ import annotations
@@ -29,11 +35,14 @@ import torch
 
 from rpg_svo_tpu_torch import resolve_device
 from rpg_svo_tpu_torch.config import Config
+from rpg_svo_tpu_torch.core import depth_filter as df
 from rpg_svo_tpu_torch.core import map as svomap
+from rpg_svo_tpu_torch.core.frame import scene_depth
+from rpg_svo_tpu_torch.core.local_ba import run_local_ba
 from rpg_svo_tpu_torch.core.map import MapState
 from rpg_svo_tpu_torch.core.reprojector import reproject_map
 from rpg_svo_tpu_torch.geometry.se3 import SE3
-from rpg_svo_tpu_torch.ops.detector import detect_features, grid_dims
+from rpg_svo_tpu_torch.ops.detector import cell_index, detect_features, grid_dims
 from rpg_svo_tpu_torch.ops.patches import extract_tiles
 from rpg_svo_tpu_torch.ops.point_opt import optimize_points
 from rpg_svo_tpu_torch.ops.pose_opt import optimize_pose
@@ -43,8 +52,8 @@ from rpg_svo_tpu_torch.ops.tiles import PaddedPyramid, padded_layout
 
 STAGE_DEFAULT = 0
 STAGE_RELOC = 1
-# stages this slice does not port yet; the step needs them stubbed out
-UNPORTED_STAGES = ("kf", "df")
+# the stages cfg.ablate may stub out
+ABLATABLE = frozenset({"kf", "df"})
 
 
 class VOState(NamedTuple):
@@ -121,19 +130,95 @@ def _structure_opt_fused(m: MapState, T: SE3, frame_id: torch.Tensor,
     return m._replace(pt=pt._replace(pos=pos, last_optim=last))
 
 
+def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
+                     feat_point, feat_valid, is_kf, depth_mean, depth_min,
+                     cam, cfg: Config, ncx: int, ncy: int) -> MapState:
+    """Keyframe insertion with creation-time feature tiles, observation
+    binding and candidate promotion, local BA (loba_num_iter > 0), seed
+    detection in the unoccupied cells and seed init, and the map cap.
+    Each stage runs every frame; with ``is_kf`` False all of them leave
+    the map as it was."""
+    F = feat_point.shape[0]
+    C = ncx * ncy
+    P = m.pt.pos.shape[0]
+    dev = feat_point.device
+    pid = torch.clamp(rep.feat_point, 0, P - 1).to(torch.int64)
+    kf_depth = torch.linalg.vector_norm(T_out.apply(m.pt.pos[pid]), dim=-1)
+    ftile, fxy0 = extract_tiles(pad, rep.feat_px, rep.feat_level)
+    # the F-slot frame table padded to the keyframe row capacity (C slots)
+    m, slot = svomap.add_keyframe(
+        m, pad.stack, T_out, frame_id, svomap.pad_rows(rep.feat_px, C, 0),
+        svomap.pad_rows(feat_f, C, 0), svomap.pad_rows(rep.feat_level, C, 0),
+        svomap.pad_rows(feat_point, C, -1), svomap.pad_rows(feat_valid, C, False),
+        svomap.pad_rows(kf_depth, C, 1.0), feat_type=svomap.pad_rows(rep.feat_type, C, 0),
+        feat_grad=svomap.pad_rows(rep.feat_grad, C, 0),
+        feat_tile=svomap.pad_rows(ftile, C, 0),
+        feat_tile_xy0=svomap.pad_rows(fxy0, C, -1), enable=is_kf)
+
+    # observation binding; bound candidates become UNKNOWN
+    bind = feat_valid & (feat_point >= 0) & is_kf
+    pt = svomap.add_point_observations(
+        m.pt, feat_point, slot.expand(F),
+        torch.arange(F, dtype=torch.int32, device=dev), bind)
+    hit = svomap.set_rows(torch.zeros((P,), dtype=torch.bool, device=dev),
+                          pid, bind, bind)
+    ptype = torch.where(hit & (pt.ptype == svomap.TYPE_CANDIDATE),
+                        torch.full_like(pt.ptype, svomap.TYPE_UNKNOWN),
+                        pt.ptype)
+    m = m._replace(pt=pt._replace(ptype=ptype))
+
+    if cfg.loba_num_iter > 0:
+        mb = run_local_ba(m, torch.clamp(slot, min=0),
+                          cfg.loba_robust_huber_width, cfg.loba_thresh,
+                          cam.fx, n_iter=cfg.loba_num_iter,
+                          core_n_kfs=cfg.core_n_kfs)
+        keep = lambda a, b: torch.where(is_kf, a, b)  # noqa: E731
+        m = m._replace(
+            kf=m.kf._replace(R=keep(mb.kf.R, m.kf.R), t=keep(mb.kf.t, m.kf.t)),
+            pt=m.pt._replace(pos=keep(mb.pt.pos, m.pt.pos),
+                             ptype=keep(mb.pt.ptype, m.pt.ptype),
+                             obs_valid=keep(mb.pt.obs_valid,
+                                            m.pt.obs_valid)))
+
+    # seeds in the cells this frame's features leave free, compacted to
+    # the per-keyframe budget before their tiles are cut
+    cells = cell_index(rep.feat_px, cfg.grid_size, ncx, ncy)
+    occupied = torch.zeros((C,), dtype=torch.int32, device=dev).scatter_reduce(
+        0, cells.to(torch.int64), feat_valid.to(torch.int32), reduce="amax",
+        include_self=True) > 0
+    det = detect_features(pad.levels()[:cfg.n_pyr_levels], occupied,
+                          cfg.grid_size)
+    good = det["valid"] & (det["score"] > cfg.triang_min_corner_score)
+    sel, ok = svomap.mask_compact(good, min(C, cfg.max_seeds_per_kf))
+    dpx, dlevel = det["px"][sel], det["level"][sel]
+    dtile, dxy0 = extract_tiles(pad, dpx, dlevel)
+    m = df.init_seeds_from_detection(
+        m, slot, {"px": dpx, "score": det["score"][sel], "level": dlevel,
+                  "valid": ok, "tile": dtile, "tile_xy0": dxy0},
+        cam, depth_mean, 0.5 * depth_min,
+        min_score=cfg.triang_min_corner_score, enable=is_kf)
+
+    # map cap: drop the furthest keyframe, never the one just added
+    if cfg.max_n_kfs > 2:
+        over = svomap.n_active_kfs(m) > cfg.max_n_kfs
+        far = svomap.furthest_kf(m.kf, T_out.inverse().t)
+        drop = torch.where(is_kf & over & (far != slot), far,
+                           torch.full_like(far, -1))
+        m = svomap.delete_keyframe(m, drop)
+    return m
+
+
 def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
             ncx: int, ncy: int,
             img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
-    """One tracking step (DEFAULT or RELOCALIZING stage) on the state's
-    device; returns (new state, outputs).  Reads nothing back to the host."""
-    missing = [s for s in UNPORTED_STAGES if s not in cfg.ablate]
-    if missing:
-        raise NotImplementedError(
-            f"stages {missing} are not ported yet: run with "
-            f"cfg.ablate containing {UNPORTED_STAGES}")
+    """One tracking and mapping step (DEFAULT or RELOCALIZING stage) on the
+    state's device; returns (new state, outputs).  Reads nothing back to
+    the host."""
     abl = frozenset(cfg.ablate)
-    if abl & {"align", "reproject", "pose", "struct"}:
-        raise NotImplementedError("only 'kf' and 'df' may be ablated")
+    if abl - ABLATABLE:
+        raise NotImplementedError(
+            f"only {sorted(ABLATABLE)} may be ablated, not "
+            f"{sorted(abl - ABLATABLE)}")
     dev = state.R.device
     C = ncx * ncy
     F = frame_feature_cap(C, cfg.max_fts)
@@ -208,6 +293,7 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     # --- 6. quality gates (frame_handler_base.cpp:157-171)
     enough_edges = pres.n_obs >= 20
     insufficient = pres.n_obs < cfg.quality_min_fts
+    dropped = (state.num_obs_last - pres.n_obs) > cfg.quality_max_drop_fts
     failed = reloc_fail | ~enough | ~enough_edges | insufficient
     T_out = SE3(state.R, state.t).where(failed, pres.T_f_w)
     feat_valid = pres.inliers & ~failed
@@ -220,9 +306,48 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                              cfg.structureoptim_max_pts,
                              cfg.structureoptim_num_iter, ~failed)
 
-    # keyframe policy, insertion and the depth filter are stubbed ("kf",
-    # "df"): no keyframe is taken, so the next step need not scrub
-    is_kf = torch.zeros((), dtype=torch.bool, device=dev)
+    # --- scene depth and the keyframe policy (frame_handler_mono.cpp:
+    # 183-197: no overlapping keyframe within kfselect_mindist)
+    if "kf" in abl:
+        is_kf = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        depth_mean, depth_min = scene_depth(T_out, feat_point, feat_valid,
+                                            m.pt.pos)
+        overlap = svomap.overlapping_kfs(m.kf, T_out, cam)
+        relpos = torch.abs(T_out.apply(svomap.kf_positions(m.kf))) \
+            / depth_mean
+        near = (relpos[:, 0] < cfg.kfselect_mindist) \
+            & (relpos[:, 1] < cfg.kfselect_mindist * 0.8) \
+            & (relpos[:, 2] < cfg.kfselect_mindist * 1.3)
+        is_kf = ~failed & ~torch.any(overlap & near) & ~dropped
+
+    # --- 7. depth filter: every df_update_every-th frame and on keyframes
+    # (the reference's mapping-queue drops, depth_filter.cpp:82-97), when
+    # some seed has work; a masked update is an exact no-op
+    if "df" not in abl:
+        due = is_kf
+        if cfg.df_update_every > 1:
+            due = due | ((frame_id % cfg.df_update_every) == 0)
+        else:
+            due = torch.ones_like(is_kf)
+        due_work = due & df.has_update_work(m, T_out, cam,
+                                            max_n_kfs=cfg.df_max_kf_age)
+        upd = df.update_seeds_fields(
+            m, pad, T_out, cam, max_n_kfs=cfg.df_max_kf_age,
+            conv_thresh=cfg.seed_convergence_sigma2_thresh,
+            max_steps=cfg.epi_max_steps, update_k=cfg.df_update_k,
+            enable=due_work, short_steps=cfg.epi_short_steps,
+            long_k=cfg.epi_long_k, max_level=cfg.n_pyr_levels - 1,
+            scan_rows=cfg.epi_scan_rows)
+        m = df.apply_seed_update(m, upd)
+
+    # --- 8. keyframe insertion, binding, local BA, seeds, map cap; every
+    # write is masked with is_kf
+    if "kf" not in abl:
+        m = _keyframe_stages(m, pad, T_out, frame_id, rep, feat_f, feat_point,
+                             feat_valid, is_kf, depth_mean, depth_min, cam,
+                             cfg, ncx, ncy)
+
     new_stage = torch.where(failed, STAGE_RELOC, STAGE_DEFAULT) \
         .to(torch.int32)
     num_obs = torch.where(failed, state.num_obs_last, pres.n_obs) \
@@ -253,9 +378,8 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
                                 device=None) -> VOState:
     """Seed the map from a ground-truth depth map on the first frame
     (benchmark_node.cpp:216-234): detect corners, create GOOD points at
-    the true depth, make the frame keyframe 0.  The depth-filter seeds the
-    JAX handler also creates come with the depth filter's slice; the seed
-    pool stays empty."""
+    the true depth, make the frame keyframe 0, and seed the depth filter
+    in the cells left without a point."""
     dev = resolve_device(device)
     img = img.to(dev)
     depth_map = depth_map.to(dev)
@@ -303,12 +427,18 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
     perm = _cell_perm(C, str(dev))
     sel_p, sv = svomap.mask_compact(good[perm], F)
     sel = perm[sel_p]
+    feat_point = torch.where(sv, ids[sel], torch.full_like(ids[sel], -1))
+    # depth-filter seeds in the cells without a feature
+    depth_mean, depth_min = scene_depth(T_f_w, feat_point, sv, m.pt.pos)
+    m = df.init_seeds(m, slot, pad, cam, good, depth_mean, 0.5 * depth_min,
+                      cell_size=cfg.grid_size,
+                      min_score=cfg.triang_min_corner_score,
+                      det_levels=cfg.n_pyr_levels,
+                      max_per_kf=cfg.max_seeds_per_kf)
     return VOState(
         m=m, pad=pad, R=T_f_w.R.clone(), t=T_f_w.t.clone(),
         frame_id=frame_id, feat_px=px[sel], feat_f=f[sel],
-        feat_level=level[sel],
-        feat_point=torch.where(sv, ids[sel], torch.full_like(ids[sel], -1)),
-        feat_valid=sv,
+        feat_level=level[sel], feat_point=feat_point, feat_valid=sv,
         stage=torch.full((), STAGE_DEFAULT, dtype=torch.int32, device=dev),
         num_obs_last=torch.sum(good).to(torch.int32),
         scrub_pending=torch.ones((), dtype=torch.bool, device=dev))

@@ -1,13 +1,15 @@
-"""Map data model: fixed-capacity struct-of-arrays pools (part).
+"""Map data model: fixed-capacity struct-of-arrays pools.
 
-Port of the parts of ``rpg_svo_tpu/core/map.py`` that the tracking slice
-and the first-frame seeding use.  Keyframes, points and seeds live in
-fixed-capacity pools with validity masks; inserts are masked scatters.
-Types and layouts equal the JAX pools one to one (int32 ids, bool masks,
-float32 values), so ``core/convert.py`` maps a JAX state field by field.
+Port of ``rpg_svo_tpu/core/map.py`` as the fused step and the first-frame
+seeding use it (``transform_map`` waits for the bootstrap).  Keyframes,
+points and seeds live in fixed-capacity pools with validity masks; inserts
+are masked scatters.  Types and layouts equal the JAX pools one to one
+(int32 ids, bool masks, float32 values), so ``core/convert.py`` maps a JAX
+state field by field.
 
 Scratch-row convention (as in the JAX package): the last row of every pool
-is never handed out as a slot; disabled or invalid inserts land there.
+is never handed out as a slot.  The JAX package writes disabled or invalid
+inserts there; the port writes nothing for them (``set_rows``).
 Point types: DELETED < CANDIDATE < UNKNOWN < GOOD.
 """
 
@@ -193,6 +195,19 @@ def mask_compact(mask: torch.Tensor, k: int):
     return torch.where(valid, out[:k], torch.zeros_like(out[:k])), valid
 
 
+def mask_compact_priority(mask: torch.Tensor, k: int,
+                          priority: torch.Tensor):
+    """Top-k set indices of a bool mask, highest ``priority`` first and
+    lower index first among ties (``lax.top_k``): (idx (k,) int64, valid
+    (k,) bool); invalid slots hold 0."""
+    key = torch.where(mask, priority.to(torch.float32),
+                      torch.full_like(priority, float("-inf"),
+                                      dtype=torch.float32))
+    val, idx = torch.sort(key, descending=True, stable=True)
+    valid = torch.isfinite(val[:k])
+    return torch.where(valid, idx[:k], torch.zeros_like(idx[:k])), valid
+
+
 def free_slots(active: torch.Tensor, n: int) -> torch.Tensor:
     """Indices of up to n free slots (-1 padded), int32 (n,)."""
     idx, ok = mask_compact(~active, n)
@@ -302,7 +317,8 @@ def _kp5(feat_px, feat_f, feat_valid, feat_depth):
     return feat_f[kp_idx], feat_depth[kp_idx], kp_valid
 
 
-def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
+def pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """a with its leading axis padded to n rows of ``fill``."""
     if a.shape[0] == n:
         return a
     pad = torch.full((n - a.shape[0],) + tuple(a.shape[1:]), fill,
@@ -313,11 +329,13 @@ def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
 def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
                  frame_id: torch.Tensor, feat_px, feat_f, feat_level,
                  feat_point, feat_valid, feat_depth, feat_type=None,
-                 feat_grad=None, feat_tile=None,
-                 feat_tile_xy0=None) -> Tuple[MapState, torch.Tensor]:
+                 feat_grad=None, feat_tile=None, feat_tile_xy0=None,
+                 enable=True) -> Tuple[MapState, torch.Tensor]:
     """Insert a keyframe into the first free slot (never the scratch row);
-    returns (map, slot).  An always-enabled insert: the fused step's
-    masked insert comes with keyframe insertion in a later slice."""
+    returns (map, slot).  ``enable`` may be a 0-d bool tensor: when it is
+    False (or no slot is free) the slot is -1 and every field keeps its
+    values (each field's row is written with its own old values, so no
+    host read decides anything)."""
     kf = m.kf
     F = feat_px.shape[0]
     dev = feat_px.device
@@ -328,16 +346,17 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
     if feat_tile is None:
         feat_tile, feat_tile_xy0 = empty_tiles(F, dev)
     slot = free_slots(kf.active[:-1], 1)[0]
-    sw = torch.where(slot >= 0, slot,
-                     torch.full_like(slot, kf.active.shape[0] - 1)) \
-        .to(torch.int64).reshape(1)
+    slot = torch.where(torch.as_tensor(enable, device=dev), slot,
+                       torch.full_like(slot, -1))
+    ok = slot >= 0
+    sw = torch.clamp(slot, min=0).to(torch.int64).reshape(1)
     kp_dir, kp_depth, kp_valid = _kp5(feat_px, feat_f, feat_valid, feat_depth)
     Fs = kf.feat_tile.shape[1]
 
     def put(arr, val):
         out = arr.clone()
-        out.index_copy_(0, sw, val.reshape((1,) + tuple(arr.shape[1:]))
-                        .to(arr.dtype))
+        val = val.reshape((1,) + tuple(arr.shape[1:])).to(arr.dtype)
+        out.index_copy_(0, sw, torch.where(ok, val, arr.index_select(0, sw)))
         return out
 
     kf = kf._replace(
@@ -354,11 +373,9 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
         kp5_dir=put(kf.kp5_dir, kp_dir),
         kp5_depth=put(kf.kp5_depth, kp_depth),
         kp5_valid=put(kf.kp5_valid, kp_valid),
-        feat_tile=put(kf.feat_tile, _pad_rows(feat_tile, Fs, 0)),
-        feat_tile_xy0=put(kf.feat_tile_xy0, _pad_rows(feat_tile_xy0, Fs, -1)),
+        feat_tile=put(kf.feat_tile, pad_rows(feat_tile, Fs, 0)),
+        feat_tile_xy0=put(kf.feat_tile_xy0, pad_rows(feat_tile_xy0, Fs, -1)),
     )
-    kf.active[-1] = False
-    kf.frame_id[-1] = -1
     return m._replace(kf=kf), slot
 
 
@@ -398,7 +415,6 @@ def alloc_points(pt: PointStore, pos, ptype_val: int, orig_kf, orig_px,
         orig_tile=set_rows(pt.orig_tile, slots, orig_tile, ok),
         orig_tile_xy0=set_rows(pt.orig_tile_xy0, slots, orig_tile_xy0, ok),
     )
-    pt.ptype[-1] = TYPE_DELETED
     return pt, slots
 
 
@@ -427,6 +443,33 @@ def add_point_observations(pt: PointStore, point_ids, kf_slot, feat_idx,
         obs_kf=put(pt.obs_kf, kf_slot),
         obs_feat=put(pt.obs_feat, feat_idx),
         obs_valid=put(pt.obs_valid, torch.ones_like(ok)))
+
+
+def delete_keyframe(m: MapState, slot: torch.Tensor) -> MapState:
+    """Map::safeDeleteFrame (map.cpp:79-99) for a 0-d slot, -1 for none:
+    deactivate the keyframe, drop the observations on it, delete the
+    UNKNOWN/GOOD points it leaves with fewer than 2 observations and the
+    candidates that originate on it, and kill the seeds it spawned."""
+    kf = m.kf
+    ok = slot >= 0
+    here = (torch.arange(kf.active.shape[0], device=slot.device) == slot)
+    kf = kf._replace(
+        active=kf.active & ~here,
+        frame_id=torch.where(here, torch.full_like(kf.frame_id, -1),
+                             kf.frame_id),
+        feat_valid=kf.feat_valid & ~here[:, None])
+    pt = m.pt
+    hit = pt.obs_valid & (pt.obs_kf == slot) & ok
+    obs_valid = pt.obs_valid & ~hit
+    n_obs = torch.sum(obs_valid, dim=-1)
+    starved = (n_obs < 2) & (pt.ptype >= TYPE_UNKNOWN) & torch.any(hit, -1)
+    cand_dead = (pt.ptype == TYPE_CANDIDATE) & (pt.orig_kf == slot) & ok
+    ptype = torch.where(starved | cand_dead,
+                        torch.full_like(pt.ptype, TYPE_DELETED), pt.ptype)
+    seed = m.seed
+    seed = seed._replace(active=seed.active & ~((seed.kf_slot == slot) & ok))
+    return m._replace(kf=kf, pt=pt._replace(obs_valid=obs_valid, ptype=ptype),
+                      seed=seed)
 
 
 def scrub_dead_references(m: MapState) -> MapState:

@@ -132,3 +132,11 @@ def align_features(cur_pad, ref_patch_border: torch.Tensor,
         uvm = torch.where(act[:, None], uvm - upd, uvm)
         conv = conv | (act & (step2 < CONV_EPS))
     return uvm[:, :2], conv & valid
+
+
+def align2d(cur_pad, ref_patch_border: torch.Tensor, px_init: torch.Tensor,
+            valid: torch.Tensor, n_iter: int = 10,
+            level: torch.Tensor | None = None):
+    """Batched align2D (every item 2-D)."""
+    return align_features(cur_pad, ref_patch_border, px_init, valid, n_iter,
+                          level)

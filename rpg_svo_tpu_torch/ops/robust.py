@@ -1,7 +1,7 @@
 """Robust cost weights and scale estimators.
 
-Port of ``rpg_svo_tpu/ops/robust.py`` (vikit's robust_cost.h: Tukey
-weights, MAD scale, masked median).  Medians sort with masked entries
+Port of ``rpg_svo_tpu/ops/robust.py`` (vikit's robust_cost.h: Tukey and
+Huber weights, MAD scale, masked median).  Medians sort with masked entries
 pushed to +inf and index the (n_valid // 2)-th element, as the JAX
 package does, so they need no host round trip.
 """
@@ -34,6 +34,12 @@ def tukey_weight(x_normalized: torch.Tensor,
     u = x_normalized / b
     w = 1.0 - u * u
     return torch.where(torch.abs(u) < 1.0, w * w, torch.zeros_like(w))
+
+
+def huber_weight(x_normalized: torch.Tensor, k: float = 1.345) -> torch.Tensor:
+    ax = torch.abs(x_normalized)
+    return torch.where(ax < k, torch.ones_like(ax),
+                       k / torch.clamp(ax, min=1e-12))
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor,

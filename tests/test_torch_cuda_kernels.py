@@ -118,6 +118,57 @@ def test_tile_kernel_bit_exact_on_card(scene, side):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use,side,n", [
+    ("reprojection, accurate", 17, 304), ("epipolar align2D", 17, 192),
+    ("keyframe tiles, fast", 24, 128), ("keyframe tiles, accurate", 24, 256),
+    ("seed detection tiles", 24, 384)])
+def test_tile_kernel_bit_exact_at_the_call_sites(scene, use, side, n):
+    """K1 against its twin at the shapes the whole step gives it (levels
+    0-2), origins over and past every edge."""
+    _, state0 = scene
+    dev = state0.R.device
+    pad = state0.pad
+    rng = np.random.default_rng(n + side)
+    lv = rng.integers(0, 3, n).astype(np.int32)
+    W = np.asarray([w for _, w in pad.shapes])[lv]
+    H = np.asarray([h for h, _ in pad.shapes])[lv]
+    x0 = rng.integers(-20, W + 20).astype(np.int32)
+    y0 = rng.integers(-20, H + 20).astype(np.int32)
+    args = (pad, torch.from_numpy(lv).to(dev), torch.from_numpy(x0).to(dev),
+            torch.from_numpy(y0).to(dev), side, side)
+    tk, xk, yk = tiles.gather_tiles(*args)
+    tp, xp, yp = tiles.gather_tiles_plain(*args)
+    assert torch.equal(tk, tp) and torch.equal(xk, xp) and torch.equal(yk, yp)
+    np.testing.assert_array_equal(xk.cpu().numpy(),
+                                  np.clip(x0, 0, np.maximum(W - side, 0)))
+
+
+@pytest.mark.cuda
+def test_sparse_align_kernel_matches_twin_at_256_features(scene):
+    """The accurate preset's 256-slot feature table (bench_cfg: grid 25,
+    max_fts 200) on the frame 0/5 pair."""
+    ds, _ = scene
+    dev = torch.device("cuda")
+    cfg = bench_cfg("accurate")
+    img0, depth0, T0 = ds.frame(0)
+    st = fused.seed_first_frame_with_depth(img0, T0.inverse(), depth0, ds.cam,
+                                           cfg, img_shape=SHAPE, device=dev)
+    assert st.feat_px.shape[0] == 256
+    pad5 = build_padded_pyramid(ds.frame(5)[0], cfg.n_levels_total)
+    pid = torch.clamp(st.feat_point, 0).long()
+    depth = torch.linalg.vector_norm(
+        SE3(st.R, st.t).apply(st.m.pt.pos[pid]), dim=-1)
+    T_init = SE3.exp(torch.tensor([2e-3, -3e-3, 1e-3, 2e-3, -1e-3, 1e-3],
+                                  device=dev))
+    args = (st.pad, pad5, ds.cam, T_init, st.feat_px, st.feat_f, depth,
+            st.feat_valid, cfg.klt_max_level, cfg.klt_min_level,
+            cfg.img_align_n_iter, cfg.img_align_eps)
+    Tk, nk, _, _, ik = align_kernel.sparse_align_kernel(*args)
+    rp = sparse_img_align_plain(*args, gather=tiles.gather_tiles_plain)
+    _assert_twin(Tk, nk, ik, rp)
+
+
+@pytest.mark.cuda
 def test_tile_kernel_rejects_malformed_inputs(scene):
     _, state0 = scene
     z = torch.zeros(4, dtype=torch.int64, device=state0.R.device)
@@ -215,4 +266,31 @@ def test_step_on_card_matches_the_cpu_path(scene):
         assert float(torch.linalg.vector_norm(og.t_wc.cpu() - oc.t_wc)) \
             < 1e-4
     assert tiles.tile_gather_kernel.launches == launches[0] + 2
+    assert align_kernel.sparse_align_kernel.launches == launches[1] + 2
+
+
+@pytest.mark.cuda
+def test_whole_step_on_card_matches_the_cpu_path(scene):
+    """Two whole fast steps (ablate=()) on the card and on the CPU from one
+    state: equal matches and keyframe decisions, poses within 1e-4 m;
+    four K1 launches and one alignment launch per step."""
+    ds, _ = scene
+    cfg = bench_cfg("fast")
+    ncx, ncy = grid_dims(SHAPE[1], SHAPE[0], cfg.grid_size)
+    img0, depth0, T0 = ds.frame(0)
+    g = fused.seed_first_frame_with_depth(img0, T0.inverse(), depth0, ds.cam,
+                                          cfg, img_shape=SHAPE,
+                                          device=img0.device)
+    c = state_from_numpy(state_to_numpy(g), device="cpu")
+    launches = (tiles.tile_gather_kernel.launches,
+                align_kernel.sparse_align_kernel.launches)
+    for i in (1, 2):
+        img = ds.frame(i)[0]
+        g, og = fused.vo_step(g, img, ds.cam, cfg, ncx, ncy, SHAPE)
+        c, oc = fused.vo_step(c, img.cpu(), ds.cam, cfg, ncx, ncy, SHAPE)
+        assert int(og.n_matches) == int(oc.n_matches)
+        assert bool(og.is_keyframe) == bool(oc.is_keyframe)
+        assert float(torch.linalg.vector_norm(og.t_wc.cpu() - oc.t_wc)) \
+            < 1e-4
+    assert tiles.tile_gather_kernel.launches == launches[0] + 8
     assert align_kernel.sparse_align_kernel.launches == launches[1] + 2
