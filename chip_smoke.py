@@ -30,11 +30,32 @@ one, or without the port beside it.  Phases, each fatal on failure:
 6. the fast step on the CPU (plain twins) over the 20 frames holding the
    first keyframe, from the card's state before them: equal keyframe
    decisions, max |dt_wc| <= 1e-3 m;
-7. one JSON line of kernel measurements, the card's line, and the result.
+7. the host pipeline ``FrameHandler`` (fast), seeded with ground-truth
+   depth as ``bench.py::run_preset`` seeds, over frames 1-440: median and
+   max translation error over frames 41-440 within the JAX handler's CPU
+   figures +10% and +20%, no failed frame; ms/frame with the SVO_TRACE
+   stage totals, host syncs per frame (sync debug mode plus the stage
+   timers' synchronizes) and device ops and time of the first keyframe
+   step and the next, from a replay of the 20 frames holding it;
+8. ``FrameHandler`` (accurate) over frames 1-100: no failed frame, the
+   first keyframe runs local BA;
+9. the ``bench.py --bootstrap`` protocol (fast): ``add_image`` from frame
+   0 at stride 5 until the default stage, ``state_from_handler``, then
+   ``vo_step`` to frame 440: the bootstrap frame, its inliers and the
+   Sim3-aligned ATE median over bench's window within the JAX CPU figure
+   +10%;
+10. relocalization: a blank frame fails, the next frame relocalizes, then
+   ``relocalize_frame_at_pose`` and ``global_ba``;
+11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
+   card's handler before them: equal results and keyframes, max |dt_wc|
+   <= 1e-3 m;
+12. one JSON line of kernel measurements (launches per frame on every
+   path), the card's line, and the result.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import statistics
@@ -56,6 +77,20 @@ SNAP_EVERY = 20                # states kept for the replays
 # JAX package's pins (BENCH_r05.json, 2.39/4.34 and 1.89/4.29 mm) plus 10%
 # and 20%
 LIMITS_MM = {"fast": (2.63, 5.2), "accurate": (2.08, 5.15)}
+# the host pipeline: the JAX FrameHandler from ground-truth depth over the
+# bench scene on the CPU (tests/_torch_port.py jax_reference): 0.48393 mm
+# median and 1.33266 mm max over frames 41-440, +10% and +20%
+HANDLER_LIMITS_MM = (0.48393 * 1.1, 1.33266 * 1.2)
+HANDLER_ACC_FRAMES = 100
+# bench.py --bootstrap's protocol: the JAX figure on the CPU (same script):
+# bootstrap at frame 165, ATE median 0.16054 mm over frames 166-405, +10%
+BOOT_STRIDE = 5
+BOOT_CHUNK = 40
+BOOT_ATE_LIMIT_MM = 0.16054 * 1.1
+RELOC_FROM = 200               # the relocalization phase starts after it
+TRACE_NAMES = ("pyramid_creation", "sparse_img_align", "reproject_kfs",
+               "reproject_candidates", "feature_align", "reproject",
+               "pose_optimizer", "point_optimizer", "local_ba")
 # card vs CPU trajectory agreement (m) over CPU_FRAMES frames
 CPU_TOL_M = 1e-3
 # K2 vs its twin (m, and rotation entries): float summation order only;
@@ -114,19 +149,24 @@ def _cuda_ms(torch, fn, reps: int = 50, warm: int = 5,
 
 def _device_us(torch, fn, sym: str, reps: int = 20) -> float:
     """Median device time (us) of the kernels named `sym` over `reps`
-    calls of `fn`, from torch.profiler; each call launches one, and the
-    profiler may drop an event or two of a run (seen on the H100)."""
+    calls of `fn`, from torch.profiler; each call launches one.  The
+    profiler may drop an event or two of a run, and now and then every
+    event of a run (both seen on the H100): such a run is profiled again,
+    at most three times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and sym in e.name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and sym in e.name]
+        if reps // 2 <= len(us):
+            break
     assert reps // 2 <= len(us) <= reps, (sym, len(us))
     return statistics.median(us)
 
@@ -171,6 +211,16 @@ def _host_syncs(torch, fn):
     return out, syncs
 
 
+def _snapshot(fh):
+    """The handler as it stands: its tensors are never written in place,
+    so a shallow copy (with its own initializer and log) keeps the
+    state."""
+    h = copy.copy(fh)
+    h.initializer = copy.copy(fh.initializer)
+    h.log = []
+    return h
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -183,9 +233,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    from rpg_svo_tpu_torch.analysis.ate import ate_rmse
     from rpg_svo_tpu_torch.config import bench_cfg
     from rpg_svo_tpu_torch.core import fused
-    from rpg_svo_tpu_torch.core.convert import state_from_numpy, state_to_numpy
+    from rpg_svo_tpu_torch.core.convert import (
+        handler_from_numpy, handler_to_numpy, state_from_numpy,
+        state_to_numpy)
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
     from rpg_svo_tpu_torch.core.reprojector import attempt_budget
     from rpg_svo_tpu_torch.geometry.se3 import SE3
     from rpg_svo_tpu_torch.ops import align_kernel, cuda_build, tiles
@@ -224,12 +278,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     k1_cases = [("sparse_align_twin", 17, 128, (4, 3, 2)),
                 ("ref_patch", 8, 128, (4, 3, 2)),
-                ("first_frame", 24, C, (0, 1, 2))]
+                ("first_frame", 24, C, (0, 1, 2)),
+                ("bootstrap_keyframes", 24, C, (0,))]
     for p, cfg in cfgs.items():
         F = fused.frame_feature_cap(C, cfg.max_fts)
         k1_cases += [
             (f"reproject_{p}", 17,
              attempt_budget(C, F, cfg.reproj_attempt_factor), (0, 1, 2)),
+            # FrameHandler's reprojection keeps the default budget factor
+            (f"reproject_handler_{p}", 17, attempt_budget(C, F), (0, 1, 2)),
             (f"epipolar_{p}", 17, cfg.df_update_k, (0, 1, 2)),
             (f"kf_tiles_{p}", 24, F, (0, 1, 2)),
             (f"seed_tiles_{p}", 24, min(C, cfg.max_seeds_per_kf), (0, 1, 2))]
@@ -474,7 +531,7 @@ def main() -> int:
 
     # --- 6. the CPU path over the window holding the first keyframe --------
     k = fast["keyframes"][0]
-    s = max(i for i in fast_snaps if i < k and k <= i + CPU_FRAMES)
+    s_fused = s = max(i for i in fast_snaps if i < k and k <= i + CPU_FRAMES)
     cpu_state = state_from_numpy(state_to_numpy(fast_snaps[s]), device="cpu")
     del fast_snaps
     cfg = cfgs["fast"]
@@ -497,13 +554,226 @@ def main() -> int:
     assert any(kf_cpu) and kf_cpu == kf_card, (kf_cpu, kf_card)
     assert dpos <= CPU_TOL_M, dpos
 
-    # --- 7. the lines --------------------------------------------------------
+    # --- 7. FrameHandler, fast, from ground-truth depth ---------------------
+    def handler_run(preset, n):
+        cfg = cfgs[preset]
+        fh = FrameHandler(cam, cfg, shape, device=dev)
+        fh.set_first_frame_with_depth(img0, T0.inverse(), depth0)
+        snaps = {0: _snapshot(fh)}
+        infos, pos = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(1, n + 1):
+            infos.append(fh.add_image(imgs[i - 1], i / 50.0))
+            pos.append(fh.last_frame.T_f_w.inverse().t)
+            if i % SNAP_EVERY == 0:
+                snaps[i] = _snapshot(fh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        pos = torch.stack(pos).cpu().numpy()
+        assert pos.shape == (n, 3) and np.isfinite(pos).all()
+        terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
+        failed = [i for i, f in enumerate(infos, 1) if f["result"] == "failure"]
+        kfs = [i for i, f in enumerate(infos, 1) if f.get("is_keyframe")]
+        stage_ms = {k: sum(f.get(k, 0.0) for f in infos) / n * 1e3
+                    for k in TRACE_NAMES}
+        summary = {"frames": n, "median_terr_mm": float(np.median(terr)) * 1e3,
+                   "max_terr_mm": float(terr.max()) * 1e3,
+                   "ms_per_frame": wall / n * 1e3,
+                   "stage_ms_per_frame": stage_ms,
+                   "timer_syncs_per_frame":
+                       sum(f["timer_syncs"] for f in infos) / n,
+                   "keyframes": kfs, "failed": failed, "launches": launches,
+                   "launches_per_frame": {k: v / n
+                                          for k, v in launches.items()}}
+        print(f"# FrameHandler {preset}: {n} frames, "
+              f"{summary['ms_per_frame']:.2f} ms/frame; terr over frames "
+              f"{TIMED_FROM}-{n}: median {summary['median_terr_mm']:.4f} mm, "
+              f"max {summary['max_terr_mm']:.4f} mm; keyframes {kfs}; failed "
+              f"{failed}; launches {launches}; stage ms/frame "
+              + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}),
+              flush=True)
+        assert not failed, f"FrameHandler {preset}: frames failed: {failed}"
+        assert kfs, f"FrameHandler {preset}: no keyframe"
+        return summary, infos, pos, snaps
+
+    handler, h_infos, h_pos, h_snaps = handler_run("fast", len(imgs))
+    assert handler["median_terr_mm"] <= HANDLER_LIMITS_MM[0] \
+        and handler["max_terr_mm"] <= HANDLER_LIMITS_MM[1], \
+        (handler["median_terr_mm"], handler["max_terr_mm"], HANDLER_LIMITS_MM)
+    # replay of the 20 frames holding the first keyframe: host syncs per
+    # frame, then device ops and time of the keyframe step and the next
+    k = handler["keyframes"][0]
+    s = max(i for i in h_snaps if i < k and k <= i + CPU_FRAMES)
+    window = range(s + 1, s + CPU_FRAMES + 1)
+    h = _snapshot(h_snaps[s])
+
+    def replay():
+        return [(h.add_image(imgs[j - 1], j / 50.0),
+                 h.last_frame.T_f_w.inverse().t) for j in window]
+    out, syncs = _host_syncs(torch, replay)
+    for (info, t_wc), j in zip(out, window):
+        assert info["result"] == h_infos[j - 1]["result"], j
+        assert float(np.abs(t_wc.cpu().numpy() - h_pos[j - 1]).max()) < 1e-5
+    handler["replay"] = {
+        "frames": [s + 1, s + CPU_FRAMES],
+        "debug_mode_syncs_per_frame": len(syncs) / CPU_FRAMES,
+        "timer_syncs_per_frame": sum(i["timer_syncs"] for i, _ in out)
+        / CPU_FRAMES,
+        "sync_sites": sorted(set(syncs))}
+    handler["host_syncs_per_frame"] = \
+        handler["replay"]["debug_mode_syncs_per_frame"] \
+        + handler["replay"]["timer_syncs_per_frame"]
+    h = _snapshot(h_snaps[s])
+    for j in range(s + 1, k):
+        h.add_image(imgs[j - 1], j / 50.0)
+    handler["steps"] = {}
+    for label, j in (("keyframe", k), ("other", k + 1)):
+        ops, dms, by, _ = _device_profile(
+            torch, lambda: h.add_image(imgs[j - 1], j / 50.0))
+        assert bool(h.log[-1].get("is_keyframe")) == (label == "keyframe")
+        handler["steps"][label] = {"frame": j, "device_ops": ops,
+                                   "device_ms": dms, "kernel_device_ms": by}
+    print(f"# FrameHandler fast replay of frames {s + 1}-{s + CPU_FRAMES}: "
+          f"{handler['host_syncs_per_frame']:.2f} host syncs per frame "
+          f"({handler['replay']['debug_mode_syncs_per_frame']:.2f} reads, "
+          f"{handler['replay']['timer_syncs_per_frame']:.2f} stage timers); "
+          f"steps {json.dumps(handler['steps'])}", flush=True)
+
+    # --- 8. FrameHandler, accurate, to the first keyframe and past it ------
+    handler_acc, acc_infos, _, _ = handler_run("accurate", HANDLER_ACC_FRAMES)
+    acc_kf = handler_acc["keyframes"][0]
+    assert "local_ba" in acc_infos[acc_kf - 1], "no local BA at the keyframe"
+    lim = LIMITS_MM["accurate"]
+    assert handler_acc["median_terr_mm"] <= lim[0] \
+        and handler_acc["max_terr_mm"] <= lim[1], handler_acc
+
+    # --- 9. the bench.py --bootstrap protocol (fast) ------------------------
+    cfg = cfgs["fast"]
+    fh = FrameHandler(cam, cfg, shape, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    fh.add_image(img0, 0.0)
+    i, i_boot, n_calls = 0, None, 1
+    while i + BOOT_STRIDE < N_FRAMES - 1:
+        i += BOOT_STRIDE
+        info = fh.add_image(imgs[i - 1], i / 50.0)
+        n_calls += 1
+        if fh.stage == "default":
+            i_boot, inliers = i, info["init_inliers"]
+            break
+    boot_s = time.perf_counter() - t0
+    assert i_boot is not None, "the bootstrap never reached the default stage"
+    boot_launches = read_counts()
+    state = fused.state_from_handler(fh)
+    reset_counts()
+    b_outs = []
+    for j in range(i_boot + 1, N_FRAMES):
+        state, out = fused.vo_step(state, imgs[j - 1], cam, cfg, ncx, ncy,
+                                   shape)
+        b_outs.append(out)
+    track_launches = read_counts()
+    est = torch.stack([o.t_wc for o in b_outs]).cpu().numpy()
+    b_failed = [i_boot + 1 + q for q, o in enumerate(b_outs)
+                if bool(o.failed)]
+    n_bench = BOOT_CHUNK + BOOT_CHUNK * (
+        (N_FRAMES - 1 - i_boot - BOOT_CHUNK) // BOOT_CHUNK)
+    ate_b = ate_rmse(gt[i_boot:i_boot + n_bench], est[:n_bench])
+    ate_all = ate_rmse(gt[i_boot:], est)
+    bootstrap = {"frame": i_boot, "inliers": inliers, "add_image_calls":
+                 n_calls, "seconds": boot_s,
+                 "bench_window": [i_boot + 1, i_boot + n_bench],
+                 "ate_median_mm": ate_b["median"] * 1e3,
+                 "ate_median_mm_to_end": ate_all["median"] * 1e3,
+                 "scale": ate_b["scale"], "failed": b_failed,
+                 "launches": boot_launches, "launches_per_call":
+                 {k_: v / n_calls for k_, v in boot_launches.items()},
+                 "track_launches": track_launches,
+                 "track_launches_per_frame":
+                 {k_: v / len(b_outs) for k_, v in track_launches.items()}}
+    print(f"# bootstrap protocol: default stage at frame {i_boot} "
+          f"({inliers} inliers, {n_calls} add_image calls, {boot_s:.1f} s); "
+          f"ATE median {bootstrap['ate_median_mm']:.4f} mm over frames "
+          f"{i_boot + 1}-{i_boot + n_bench} (limit {BOOT_ATE_LIMIT_MM:.4f}), "
+          f"{bootstrap['ate_median_mm_to_end']:.4f} mm to frame "
+          f"{N_FRAMES - 1}; scale {ate_b['scale']:.4f}; failed {b_failed}; "
+          f"launches {boot_launches} then {track_launches}", flush=True)
+    assert not b_failed, b_failed
+    assert bootstrap["ate_median_mm"] <= BOOT_ATE_LIMIT_MM, bootstrap
+
+    # --- 10. relocalization, relocalize_frame_at_pose, global BA -----------
+    h = _snapshot(h_snaps[RELOC_FROM])
+    black = torch.zeros(shape, device=dev)
+    reset_counts()
+    r1 = h.add_image(black, 0.0)
+    assert r1["result"] == "failure" and h.stage == "relocalizing", r1
+    r2 = h.add_image(imgs[RELOC_FROM], 0.0)
+    reloc_err = float(np.linalg.norm(
+        h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM]))
+    assert r2["result"] != "failure" and h.stage == "default", r2
+    kf = h.map.kf
+    kf_id = int(kf.frame_id[kf.active].max())
+    at_pose = h.relocalize_frame_at_pose(
+        kf_id, SE3.identity(device=dev), imgs[RELOC_FROM + 1], 0.0)
+    at_pose_err = float(np.linalg.norm(
+        h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM + 1]))
+    assert at_pose and h.stage == "default"
+    reloc_launches = read_counts()
+    R_before = h.map.kf.R.clone()
+    h.global_ba()
+    moved = float(torch.abs(h.map.kf.R - R_before).max())
+    assert bool(torch.isfinite(h.map.kf.R).all()) \
+        and bool(torch.isfinite(h.map.pt.pos).all())
+    relocalization = {"from_frame": RELOC_FROM, "blank": r1["result"],
+                      "recovered": r2["result"], "terr_mm": reloc_err * 1e3,
+                      "at_pose_kf": kf_id, "at_pose_terr_mm":
+                      at_pose_err * 1e3, "launches": reloc_launches,
+                      "global_ba_max_dR": moved}
+    print(f"# relocalization after frame {RELOC_FROM}: blank frame "
+          f"{r1['result']}, next frame {r2['result']} (terr "
+          f"{reloc_err * 1e3:.3f} mm); at the pose of keyframe {kf_id}: "
+          f"{at_pose} (terr {at_pose_err * 1e3:.3f} mm); global BA moved "
+          f"rotations by up to {moved:.2e}; launches {reloc_launches}",
+          flush=True)
+    assert reloc_err < 0.01 and at_pose_err < 0.01
+
+    # --- 11. FrameHandler on the CPU over the replay's frames --------------
+    cpu_fh = handler_from_numpy(handler_to_numpy(h_snaps[s]), cam,
+                                cfgs["fast"], shape, device="cpu")
+    del h_snaps
+    h_dpos, kf_cpu, kf_card = 0.0, [], []
+    t0 = time.perf_counter()
+    for j in window:
+        info = cpu_fh.add_image(imgs[j - 1].cpu(), j / 50.0)
+        assert info["result"] == h_infos[j - 1]["result"], j
+        kf_cpu.append(bool(info.get("is_keyframe")))
+        kf_card.append(bool(h_infos[j - 1].get("is_keyframe")))
+        h_dpos = max(h_dpos, float(np.abs(
+            cpu_fh.last_frame.T_f_w.inverse().t.numpy() - h_pos[j - 1]).max()))
+    h_cpu_wall = time.perf_counter() - t0
+    print(f"# FrameHandler card vs CPU over frames {s + 1}-{s + CPU_FRAMES} "
+          f"(keyframe at {k}): max |dt_wc| {h_dpos:.3e} m (tol {CPU_TOL_M}); "
+          f"keyframes equal: {kf_cpu == kf_card}; CPU "
+          f"{h_cpu_wall / CPU_FRAMES * 1e3:.1f} ms/frame", flush=True)
+    assert any(kf_cpu) and kf_cpu == kf_card, (kf_cpu, kf_card)
+    assert h_dpos <= CPU_TOL_M, h_dpos
+
+    # --- 12. the lines -------------------------------------------------------
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
-             "accurate": (accurate["launches"], accurate["frames"])}
+             "accurate": (accurate["launches"], accurate["frames"]),
+             "handler_fast": (handler["launches"], handler["frames"]),
+             "handler_accurate": (handler_acc["launches"],
+                                  handler_acc["frames"]),
+             "bootstrap_handler": (boot_launches, n_calls),
+             "bootstrap_vo_step": (track_launches, len(b_outs)),
+             "relocalization": (reloc_launches, 3)}
     for name in ("tile_gather", "sparse_align"):
         for path, (counts, _) in paths.items():
-            assert counts[name] > 0, (name, path)
+            # the bootstrap's two stages before tracking align nothing
+            if (name, path) != ("sparse_align", "bootstrap_handler"):
+                assert counts[name] > 0, (name, path)
 
     def by_path(name):
         return ({p: c[name] for p, (c, _) in paths.items()},
@@ -546,10 +816,16 @@ def main() -> int:
                            "device_ops_per_step": ops_a,
                            "device_ms_per_step": ms_a},
                "fast": fast, "accurate": accurate,
-               "card_vs_cpu": {"frames": [s + 1, s + CPU_FRAMES],
+               "card_vs_cpu": {"frames": [s_fused + 1, s_fused + CPU_FRAMES],
                                "max_dt_m": dpos,
                                "cpu_ms_per_frame":
                                    cpu_wall / CPU_FRAMES * 1e3},
+               "handler_fast": handler, "handler_accurate": handler_acc,
+               "bootstrap": bootstrap, "relocalization": relocalization,
+               "handler_card_vs_cpu": {"frames": [s + 1, s + CPU_FRAMES],
+                                       "max_dt_m": h_dpos,
+                                       "cpu_ms_per_frame":
+                                           h_cpu_wall / CPU_FRAMES * 1e3},
                "seconds": time.perf_counter() - t_start}
     print("# summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -8,10 +8,13 @@ hold this one against.  This package imports ``torch`` and numpy only.
 Layout
 ------
 - ``geometry``  SE3, cameras, triangulation, small closed-form solves
-- ``ops``       pyramid, tile gather (CUDA kernel K1), sparse image
+- ``ops``       pyramids, tile gather (CUDA kernel K1), sparse image
                 alignment (CUDA kernel K2), feature alignment, matcher,
-                pose and structure refinement, detector
-- ``core``      map pools, reprojector, the fused tracking step
+                pose and structure refinement, detector, KLT, homography
+- ``core``      map pools, reprojector, depth filter, bundle adjustment,
+                the fused tracking step, the two-view bootstrap and the
+                host pipeline (``core.pipeline.FrameHandler``)
+- ``analysis``  trajectory error (ATE)
 - ``utils``     synthetic dataset renderer
 - ``csrc``      the CUDA sources, built with nvcc on first use
 

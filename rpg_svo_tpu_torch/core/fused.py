@@ -24,7 +24,9 @@ and its result is kept or dropped with ``torch.where`` or a mask, so
 nothing in the step reads a value back to the host and the step can later
 be captured in a CUDA graph.  ``seed_first_frame_with_depth`` ports
 ``FrameHandler.set_first_frame_with_depth`` (core/pipeline.py:202-256) as
-a function returning a ``VOState``.
+a function returning a ``VOState`` (``core/pipeline.FrameHandler`` seeds
+through it), and ``state_from_handler`` starts the step from a
+bootstrapped ``FrameHandler``.
 """
 
 from __future__ import annotations
@@ -375,11 +377,13 @@ def vo_scan(state: VOState, imgs, cam, cfg: Config, ncx: int, ncy: int,
 def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
                                 depth_map: torch.Tensor, cam, cfg: Config,
                                 img_shape: Tuple[int, int] = (480, 752),
-                                device=None) -> VOState:
+                                device=None, frame_id: int = 0,
+                                m: MapState | None = None) -> VOState:
     """Seed the map from a ground-truth depth map on the first frame
     (benchmark_node.cpp:216-234): detect corners, create GOOD points at
-    the true depth, make the frame keyframe 0, and seed the depth filter
-    in the cells left without a point."""
+    the true depth, make the frame a keyframe, and seed the depth filter
+    in the cells left without a point.  Into an empty map unless ``m`` (on
+    the device) is given."""
     dev = resolve_device(device)
     img = img.to(dev)
     depth_map = depth_map.to(dev)
@@ -390,9 +394,10 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
     ncx, ncy = grid_dims(img_shape[1], img_shape[0], cfg.grid_size)
     C = ncx * ncy
     F = frame_feature_cap(C, cfg.max_fts)
-    m = svomap.init_map(cfg.max_kfs_pool, C, cfg.max_points,
-                        cfg.max_obs_per_point, cfg.max_seeds, (Hs, Ws),
-                        device=dev)
+    if m is None:
+        m = svomap.init_map(cfg.max_kfs_pool, C, cfg.max_points,
+                            cfg.max_obs_per_point, cfg.max_seeds, (Hs, Ws),
+                            device=dev)
     pad = build_padded_pyramid(img, n_levels)
     det = detect_features(pad.levels()[:cfg.n_pyr_levels],
                           torch.zeros((C,), dtype=torch.bool, device=dev),
@@ -406,7 +411,7 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
     p_w = T_f_w.inverse().apply(f * d[:, None])
 
     tile, txy0 = extract_tiles(pad, px, level)
-    frame_id = torch.zeros((), dtype=torch.int32, device=dev)
+    frame_id = torch.tensor(frame_id, dtype=torch.int32, device=dev)
     no_pt = torch.full((C,), -1, dtype=torch.int32, device=dev)
     m, slot = svomap.add_keyframe(m, pad.stack, T_f_w, frame_id, px, f,
                                   level, no_pt, good, d, feat_tile=tile,
@@ -417,9 +422,9 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
                                   orig_tile_xy0=txy0)
     pt = svomap.add_point_observations(
         pt, ids, slots, torch.arange(C, dtype=torch.int32, device=dev), good)
-    kf_fp = m.kf.feat_point.clone()
-    kf_fp.index_copy_(0, slot.reshape(1).to(torch.int64),
-                      torch.where(good, ids, no_pt)[None])
+    kf_fp = svomap.set_rows(m.kf.feat_point, slot.reshape(1),
+                            torch.where(good, ids, no_pt)[None],
+                            (slot >= 0).reshape(1))
     m = m._replace(pt=pt, kf=m.kf._replace(feat_point=kf_fp))
 
     # frame table: up to F detections in the fixed shuffled cell order
@@ -441,4 +446,20 @@ def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,
         feat_level=level[sel], feat_point=feat_point, feat_valid=sv,
         stage=torch.full((), STAGE_DEFAULT, dtype=torch.int32, device=dev),
         num_obs_last=torch.sum(good).to(torch.int32),
+        scrub_pending=torch.ones((), dtype=torch.bool, device=dev))
+
+
+def state_from_handler(fh) -> VOState:
+    """The step's state from a host ``FrameHandler`` after its start (the
+    ``bench.py --bootstrap`` protocol: bootstrap with the handler, track
+    with ``vo_step``)."""
+    lf = fh.last_frame
+    dev = lf.R.device
+    return VOState(
+        m=fh.map, pad=lf.pad, R=lf.R, t=lf.t, frame_id=lf.frame_id,
+        feat_px=lf.feat_px, feat_f=lf.feat_f, feat_level=lf.feat_level,
+        feat_point=lf.feat_point, feat_valid=lf.feat_valid,
+        stage=torch.full((), STAGE_DEFAULT, dtype=torch.int32, device=dev),
+        num_obs_last=torch.tensor(fh.num_obs_last, dtype=torch.int32,
+                                  device=dev),
         scrub_pending=torch.ones((), dtype=torch.bool, device=dev))

@@ -8,17 +8,21 @@ keyframe stays fixed; the points seen by a variable keyframe with at least
 two observations are compacted (most observations first) and solved with
 them; outlier observations are pruned and points left with fewer than two
 die.  The point store's observation table is the problem layout as it is.
-The two-view and global solves come with the bootstrap and the host path.
+
+Also ``run_two_view_ba`` (ba::twoViewBA, bundle_adjustment.cpp:41-120,
+after the bootstrap) and ``run_global_ba`` (ba::globalBA, :253-343, on
+demand), which solve over the whole point pool.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rpg_svo_tpu_torch.ba.schur import BAProblem, solve_ba
+from rpg_svo_tpu_torch.ba.schur import BAProblem, _apply_cams, solve_ba
 from rpg_svo_tpu_torch.core.map import (
     TYPE_DELETED, TYPE_UNKNOWN, MapState, kf_positions,
     mask_compact_priority, set_rows)
+from rpg_svo_tpu_torch.geometry.cameras import project2d
 
 
 def _extract_observations_rows(kf, obs_kf, obs_feat, obs_valid, orig_kf,
@@ -37,6 +41,15 @@ def _extract_observations_rows(kf, obs_kf, obs_feat, obs_valid, orig_kf,
     obs_mask = torch.cat([obs_valid, (orig_kf >= 0)[:, None]], dim=1) \
         & kf.active[obs_cam]
     return obs_cam.to(torch.int32), obs_f, obs_level, obs_mask
+
+
+def _extract_observations(m: MapState):
+    """The whole observation table plus the origin column as problem
+    arrays, each (P, M + 1)."""
+    pt = m.pt
+    return _extract_observations_rows(m.kf, pt.obs_kf, pt.obs_feat,
+                                      pt.obs_valid, pt.orig_kf, pt.orig_f,
+                                      pt.orig_level)
 
 
 def build_local_ba_problem(m: MapState, new_kf_slot: torch.Tensor,
@@ -117,3 +130,64 @@ def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
             starved, torch.full_like(ptype_sel, TYPE_DELETED), ptype_sel),
             selok))
     return m._replace(kf=kf, pt=pt)
+
+
+def run_two_view_ba(m: MapState, slot_fixed: torch.Tensor,
+                    slot_var: torch.Tensor, huber_width: float,
+                    reproj_thresh_px: float, fx: float,
+                    n_iter: int = 10) -> MapState:
+    """Two-view BA of the bootstrap pair: ``slot_fixed`` stays, the other
+    keyframe and every point seen by both move; a point with any outlier
+    observation is deleted (safeDeletePoint)."""
+    kf, pt = m.kf, m.pt
+    K = kf.R.shape[0]
+    ar = torch.arange(K, device=kf.R.device)
+    variable = (ar == slot_var) & kf.active
+    obs_cam, obs_f, obs_level, obs_mask = _extract_observations(m)
+    on = lambda s: torch.any(obs_mask & (obs_cam == s), dim=1)  # noqa: E731
+    p_valid = (pt.ptype != TYPE_DELETED) & on(slot_fixed) & on(slot_var)
+    res = solve_ba(BAProblem(kf.R, kf.t, variable, pt.pos, p_valid, obs_cam,
+                             obs_f, obs_level, obs_mask),
+                   n_iter=n_iter, huber_width=huber_width / fx,
+                   reproj_thresh_unitplane=reproj_thresh_px / fx,
+                   n_var_max=8)
+    bad = p_valid & torch.any(obs_mask & ~res.obs_inlier, dim=1)
+    return m._replace(
+        kf=kf._replace(R=torch.where(variable[:, None, None], res.R, kf.R),
+                       t=torch.where(variable[:, None], res.t, kf.t)),
+        pt=pt._replace(
+            pos=torch.where(p_valid[:, None], res.p_w, pt.pos),
+            ptype=torch.where(bad, torch.full_like(pt.ptype, TYPE_DELETED),
+                              pt.ptype)))
+
+
+def run_global_ba(m: MapState, huber_width_px: float, loba_thresh_px: float,
+                  poseoptim_thresh_px: float, fx: float,
+                  n_iter: int = 10) -> MapState:
+    """Global BA: every active keyframe and every point with two or more
+    observations move.  Observations whose current reprojection error is
+    above the pose optimizer's threshold are left out and removed first;
+    after the solve, those above the local-BA threshold are removed too
+    (removePtFrameRef)."""
+    kf, pt = m.kf, m.pt
+    K = kf.R.shape[0]
+    M = pt.obs_kf.shape[1]
+    obs_cam, obs_f, obs_level, obs_mask = _extract_observations(m)
+    cam = torch.clamp(obs_cam, 0, K - 1).to(torch.int64)
+    p_c, _ = _apply_cams(kf.R, kf.t, cam, pt.pos)
+    err = project2d(obs_f) - project2d(p_c)
+    stale = obs_mask & (torch.sum(err * err, dim=-1)
+                        > (poseoptim_thresh_px / fx) ** 2)
+    obs_mask = obs_mask & ~stale
+    p_valid = (pt.ptype != TYPE_DELETED) & (torch.sum(obs_mask, 1) >= 2)
+    res = solve_ba(BAProblem(kf.R, kf.t, kf.active, pt.pos, p_valid, obs_cam,
+                             obs_f, obs_level, obs_mask),
+                   n_iter=n_iter, huber_width=huber_width_px / fx,
+                   reproj_thresh_unitplane=loba_thresh_px / fx)
+    keep = ~stale[:, :M] & (res.obs_inlier[:, :M] | ~p_valid[:, None])
+    var = kf.active
+    return m._replace(
+        kf=kf._replace(R=torch.where(var[:, None, None], res.R, kf.R),
+                       t=torch.where(var[:, None], res.t, kf.t)),
+        pt=pt._replace(pos=torch.where(p_valid[:, None], res.p_w, pt.pos),
+                       obs_valid=pt.obs_valid & keep))

@@ -1,7 +1,6 @@
 """Map data model: fixed-capacity struct-of-arrays pools.
 
-Port of ``rpg_svo_tpu/core/map.py`` as the fused step and the first-frame
-seeding use it (``transform_map`` waits for the bootstrap).  Keyframes,
+Port of ``rpg_svo_tpu/core/map.py``.  Keyframes,
 points and seeds live in fixed-capacity pools with validity masks; inserts
 are masked scatters.  Types and layouts equal the JAX pools one to one
 (int32 ids, bool masks, float32 values), so ``core/convert.py`` maps a JAX
@@ -487,3 +486,21 @@ def scrub_dead_references(m: MapState) -> MapState:
     return m._replace(kf=kf._replace(feat_valid=feat_valid,
                                      feat_point=feat_point),
                       pt=pt._replace(obs_valid=obs_valid))
+
+
+def transform_map(m: MapState, R: torch.Tensor, t: torch.Tensor,
+                  s) -> MapState:
+    """Similarity transform of the whole map (Map::transform, map.cpp:
+    176-193): points and camera centres map through p' = s R p + t,
+    camera orientations rotate by R, and the seeds' inverse depths (and
+    keyframe key-point depths) scale with s."""
+    kf = m.kf
+    pos_new = s * torch.einsum("ij,kj->ki", R, kf_positions(kf)) + t
+    rot = torch.einsum("ij,kjl->kil", R, kf.R.transpose(-1, -2))
+    T_f_w = SE3(rot, pos_new).inverse()
+    seed = m.seed
+    return m._replace(
+        kf=kf._replace(R=T_f_w.R, t=T_f_w.t, kp5_depth=kf.kp5_depth * s),
+        pt=m.pt._replace(pos=s * torch.einsum("ij,pj->pi", R, m.pt.pos) + t),
+        seed=seed._replace(mu=seed.mu / s, sigma2=seed.sigma2 / (s * s),
+                           z_range=seed.z_range / s))

@@ -1,8 +1,9 @@
 """Triangulation and projection Jacobians.
 
 Port of ``rpg_svo_tpu/geometry/triangulation.py``: the reference's
-``Frame::jacobian_xyz2uv`` (svo/include/svo/frame.h:116-138) and
-``Matcher::depthFromTriangulation`` (svo/src/matcher.cpp:109-122).
+``Frame::jacobian_xyz2uv`` (svo/include/svo/frame.h:116-138),
+``Matcher::depthFromTriangulation`` (svo/src/matcher.cpp:109-122) and the
+bootstrap's midpoint triangulation.
 """
 
 from __future__ import annotations
@@ -48,3 +49,15 @@ def depth_from_triangulation(T_cur_ref: SE3, f_ref: torch.Tensor,
     d_ref = (c * rhs0 - b * rhs1) / det_safe
     d_cur = (a * rhs1 - b * rhs0) / det_safe
     return d_ref, d_cur, ok
+
+
+def triangulate_midpoint(T_w_ref: SE3, T_w_cur: SE3, f_ref: torch.Tensor,
+                         f_cur: torch.Tensor):
+    """World point of two bearing rays, the midpoint of their closest
+    approach (the bootstrap's vk::triangulate, initialization.cpp:79-97).
+    Returns (p_world, ok): ok needs both depths positive."""
+    T_cur_ref = T_w_cur.inverse() * T_w_ref
+    d_ref, d_cur, ok = depth_from_triangulation(T_cur_ref, f_ref, f_cur)
+    p_w = 0.5 * (T_w_ref.apply(f_ref * d_ref[..., None])
+                 + T_w_cur.apply(f_cur * d_cur[..., None]))
+    return p_w, ok & (d_ref > 0) & (d_cur > 0)

@@ -9,9 +9,15 @@ alignment is one launch of kernel K2 (``align_kernel``).  Everything else
 runs ``sparse_img_align_plain``: per level, ``_precompute_level`` cuts each
 reference patch with its border from an 8x8 tile of the reference pyramid
 and builds the fixed inverse-compositional Jacobians, and ``_level_gn``
-runs the Gauss-Newton loop on 17x17 tiles of the current pyramid.  This
-port reads both pyramids as padded stacks; the JAX package's
-per-pixel-gather path for raw images is not ported.
+runs the Gauss-Newton loop on 17x17 tiles of the current pyramid.
+
+``sparse_img_align_raw`` is the JAX package's path for pyramids given as
+level images without a padded stack (``cur_pad=None`` there; the host
+pipeline's relocalization takes it): the bordered reference patches are
+bilinear samples with per-pixel validity, the current tiles are gathered
+with per-pixel validity (not clamped into the level), and a window is
+usable only when all of its bilinear support is backed.  JAX runs no kernel
+on that path either, so it is plain torch on every device.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.geometry.triangulation import jacobian_xyz2uv
 from rpg_svo_tpu_torch.ops import align_kernel
 from rpg_svo_tpu_torch.ops.align_kernel import (
-    PATCH_HALFSIZE, PATCH_SIZE, TILE)
+    PATCH_HALFSIZE, PATCH_SIZE, SLACK, TILE)
+from rpg_svo_tpu_torch.ops.interp import bilinear, patch_grid
 from rpg_svo_tpu_torch.ops.tiles import MAX_LEVELS, gather_tiles
 
 PATCH_AREA = PATCH_SIZE * PATCH_SIZE
@@ -39,10 +46,13 @@ class AlignResult(NamedTuple):
     iters: torch.Tensor       # (MAX_LEVELS,) int32: GN iterations per level
 
 
-def _window(tile: torch.Tensor, o: torch.Tensor):
-    """Bilinear 4x4 window at float tile offset o (N, 2) from fully backed
+def _window(tile: torch.Tensor, o: torch.Tensor,
+            okf: torch.Tensor | None = None):
+    """Bilinear 4x4 window at float tile offset o (N, 2) from
     (N, TILE, TILE) tiles: (vals (N, 16), usable (N,)).  Interpolates along
-    y, then x, the order of the reference's selection contractions."""
+    y, then x, the order of the reference's selection contractions.  Tiles
+    with per-pixel validity ``okf`` (N, TILE, TILE) need all of the
+    window's 5x5 support backed; without it they are fully backed."""
     N = tile.shape[0]
     oi = torch.floor(o)
     w = o - oi
@@ -53,10 +63,13 @@ def _window(tile: torch.Tensor, o: torch.Tensor):
     ox = torch.clamp(oi[:, 0], 0, TILE - PATCH_SIZE - 1)
     oy = torch.clamp(oi[:, 1], 0, TILE - PATCH_SIZE - 1)
     r = torch.arange(PATCH_SIZE + 1, device=tile.device)
-    idx = (oy[:, None, None] + r[None, :, None]) * TILE \
-        + ox[:, None, None] + r[None, None, :]
-    reg = torch.gather(tile.reshape(N, -1), 1, idx.reshape(N, -1)) \
+    idx = ((oy[:, None, None] + r[None, :, None]) * TILE
+           + ox[:, None, None] + r[None, None, :]).reshape(N, -1)
+    reg = torch.gather(tile.reshape(N, -1), 1, idx) \
         .reshape(N, PATCH_SIZE + 1, PATCH_SIZE + 1)
+    if okf is not None:
+        usable = usable & torch.all(
+            torch.gather(okf.reshape(N, -1), 1, idx), dim=1)
     wx = w[:, 0, None, None]
     wy = w[:, 1, None, None]
     rows = (1.0 - wy) * reg[:, :-1, :] + wy * reg[:, 1:, :]
@@ -103,10 +116,11 @@ def _precompute_level(cam_fx: float, feats_px, feats_f, feats_depth,
 
 
 def _gn_loop(tile, base, p_ref, ref_patch, jac, valid, T_init: SE3, cam,
-             scale: float, n_iter: int, eps: float, robust: bool = False):
-    """The GN iterations of one level on gathered tiles; carries the best
-    (lowest-chi2) pose.  Returns (T, n_meas int32, H, chi2, iterations
-    run int32).
+             scale: float, n_iter: int, eps: float, robust: bool = False,
+             okf=None):
+    """The GN iterations of one level on gathered tiles (with per-pixel
+    validity ``okf`` on the raw path); carries the best (lowest-chi2)
+    pose.  Returns (T, n_meas int32, H, chi2, iterations run int32).
 
     A fixed ``n_iter`` loop with a ``done`` mask: once done, every carried
     value is frozen, so this equals the reference's early-exit loop."""
@@ -117,7 +131,7 @@ def _gn_loop(tile, base, p_ref, ref_patch, jac, valid, T_init: SE3, cam,
         p_cur = T.apply(p_ref)
         behind = p_cur[..., 2] <= 1e-6
         uv = cam.world2cam(p_cur) * scale
-        vals, usable = _window(tile, uv - PATCH_HALFSIZE - base)
+        vals, usable = _window(tile, uv - PATCH_HALFSIZE - base, okf)
         m = (valid & usable & ~behind)[:, None].expand(-1, PATCH_AREA)
         res = torch.where(m, vals - ref_patch, torch.zeros_like(vals))
         return res, m
@@ -227,3 +241,66 @@ def sparse_img_align(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
     return sparse_img_align_plain(
         ref_pad, cur_pad, cam, T_cur_ref_init, feats_px, feats_f,
         feats_depth, feats_valid, max_level, min_level, n_iter, eps, robust)
+
+
+def _precompute_level_raw(ref_img, cam_fx: float, feats_px, feats_f,
+                          feats_depth, feats_valid, level: int):
+    """``_precompute_level`` on a level image: the bordered 6x6 patch is
+    36 bilinear samples, and a feature is valid only when all of them are
+    inside the level."""
+    scale = 1.0 / (2.0 ** level)
+    B = PATCH_SIZE + 2
+    grid_b = patch_grid(PATCH_HALFSIZE, border=1, device=feats_px.device)
+    vals_b, okb = bilinear(ref_img, feats_px[:, None, :] * scale
+                           + grid_b[None])
+    pb = vals_b.reshape(-1, B, B)
+    vals = pb[:, 1:-1, 1:-1].reshape(-1, PATCH_AREA)
+    dx = (0.5 * (pb[:, 1:-1, 2:] - pb[:, 1:-1, :-2])).reshape(-1, PATCH_AREA)
+    dy = (0.5 * (pb[:, 2:, 1:-1] - pb[:, :-2, 1:-1])).reshape(-1, PATCH_AREA)
+    valid = feats_valid & (feats_depth > 1e-6) & torch.all(okb, dim=-1)
+    fjac = jacobian_xyz2uv(feats_f * feats_depth[:, None])
+    jac = (dx[..., None] * fjac[:, None, 0, :]
+           + dy[..., None] * fjac[:, None, 1, :]) * (cam_fx * scale)
+    return vals, jac, valid
+
+
+def _gather_tile_raw(img: torch.Tensor, uv0: torch.Tensor):
+    """(TILE, TILE) tile per feature around level coords uv0 (N, 2) from a
+    level image, zero and invalid outside it: (base (N, 2) float, tiles,
+    okf)."""
+    base = torch.floor(uv0).to(torch.int64) - PATCH_HALFSIZE - SLACK
+    r = torch.arange(TILE, device=uv0.device)
+    xg = base[:, 0, None, None] + r[None, None, :]
+    yg = base[:, 1, None, None] + r[None, :, None]
+    H, W = img.shape
+    ok = (xg >= 0) & (yg >= 0) & (xg < W) & (yg < H)
+    idx = torch.clamp(yg, 0, H - 1) * W + torch.clamp(xg, 0, W - 1)
+    vals = torch.where(ok, img.reshape(-1)[idx], torch.zeros((), device=
+                                                             img.device))
+    return base.to(torch.float32), vals, ok
+
+
+def sparse_img_align_raw(ref_pyr, cur_pyr, cam, T_cur_ref_init: SE3,
+                         feats_px, feats_f, feats_depth, feats_valid,
+                         max_level: int = 4, min_level: int = 2,
+                         n_iter: int = 30, eps: float = 1e-7) -> AlignResult:
+    """Coarse-to-fine sparse image alignment on level images (tuples),
+    with per-pixel validity: the JAX package's ``cur_pad=None`` path."""
+    T = T_cur_ref_init
+    p_ref = feats_f * feats_depth[:, None]
+    n_meas = H = chi2 = None
+    iters = torch.zeros((MAX_LEVELS,), dtype=torch.int32,
+                        device=feats_px.device)
+    for level in range(max_level, min_level - 1, -1):
+        scale = 1.0 / (2.0 ** level)
+        ref_patch, jac, valid = _precompute_level_raw(
+            ref_pyr[level], cam.fx, feats_px, feats_f, feats_depth,
+            feats_valid, level)
+        base, tiles, okf = _gather_tile_raw(
+            cur_pyr[level], cam.world2cam(T.apply(p_ref)) * scale)
+        T, n_meas, H, chi2, iters[level] = _gn_loop(
+            tiles, base, p_ref, ref_patch, jac, valid, T, cam, scale, n_iter,
+            eps, okf=okf)
+    n_tracked = torch.div(n_meas, PATCH_AREA, rounding_mode="floor") \
+        .to(torch.int32)
+    return AlignResult(T, n_tracked, H, chi2, iters)

@@ -140,3 +140,110 @@ def need_cuda() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; run on the chip")
     return torch.device("cuda")
+
+
+def jax_frame_tree(fr):
+    """A JAX FrameState as the dict core/convert.frame_from_numpy reads."""
+    return {k: (float(v) if k == "timestamp" else jax_tree(v))
+            for k, v in fr._asdict().items() if k not in ("pyr", "flat")}
+
+
+def jax_handler_tree(fh):
+    """A JAX FrameHandler's state as core/convert.handler_from_numpy reads
+    it."""
+    ini = fh.initializer
+    frame0 = getattr(fh, "_init_frame0", None)
+    return {
+        "map": jax_tree(fh.map),
+        "last_frame": None if fh.last_frame is None
+        else jax_frame_tree(fh.last_frame),
+        "stage": fh.stage, "quality": fh.quality,
+        "num_obs_last": int(fh.num_obs_last), "next_id": int(fh.next_id),
+        "init": {"state": None if ini.state is None else jax_tree(ini.state),
+                 "ref_pyr": None if ini.ref_pyr is None
+                 else [np.array(a) for a in ini.ref_pyr],
+                 "frame0": None if frame0 is None
+                 else jax_frame_tree(frame0)}}
+
+
+def jax_reference(n_frames: int = 441, timed_from: int = 41,
+                  stride: int = 5, chunk: int = 40) -> dict:
+    """The JAX package's figures behind the port's chip limits, on the
+    bench scene (752x480, 441-frame circle) with ``bench_cfg("fast")``:
+
+    - ``handler``: FrameHandler from ground-truth depth over frames
+      1..n-1 (bench.py::run_preset's start, then the handler itself):
+      median and max translation error over frames timed_from..n-1,
+      failed frames, keyframe frames;
+    - ``bootstrap``: bench.py::run_bootstrap's protocol: add_image from
+      frame 0 at ``stride`` until the default stage, then the fused step
+      in ``chunk``-frame scans; the Sim3-aligned ATE median over bench's
+      window (its warm-up chunk and whole timed chunks) and over all
+      frames to the end.
+
+    Run on the CPU: ``JAX_PLATFORMS=cpu python tests/_torch_port.py``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from rpg_svo_tpu.analysis.ate import ate_rmse
+    from rpg_svo_tpu.config import Config as JConfig
+    from rpg_svo_tpu.core import fused as jfused
+    from rpg_svo_tpu.core.pipeline import FrameHandler
+    from rpg_svo_tpu.utils.synthetic import SyntheticDataset
+    from rpg_svo_tpu_torch.config import bench_cfg
+    cfg = JConfig(**dataclasses.asdict(bench_cfg("fast")))
+    ds = SyntheticDataset(n_frames=n_frames, trajectory="circle",
+                          radius=0.25, revolutions=0.5)
+    imgs = [ds.frame(i)[0] for i in range(n_frames)]
+    gt = np.stack([np.asarray(ds.poses[i].t) for i in range(n_frames)])
+    out = {}
+
+    fh = FrameHandler(ds.cam, cfg)
+    img0, depth0, T0 = ds.frame(0)
+    fh.set_first_frame_with_depth(img0, T0.inverse(), depth0)
+    pos, failed, kfs = [], [], []
+    for i in range(1, n_frames):
+        info = fh.add_image(imgs[i], i / 50.0)
+        pos.append(np.asarray(fh.last_frame.T_f_w.inverse().t))
+        failed += [i] if info["result"] == "failure" else []
+        kfs += [i] if info.get("is_keyframe") else []
+    terr = np.linalg.norm(np.stack(pos) - gt[1:], axis=-1)[timed_from - 1:]
+    out["handler"] = {"median_terr_mm": float(np.median(terr)) * 1e3,
+                      "max_terr_mm": float(terr.max()) * 1e3,
+                      "failed": failed, "keyframes": kfs}
+
+    fh = FrameHandler(ds.cam, cfg)
+    fh.add_image(imgs[0], 0.0)
+    i, i_boot, inliers = 0, None, None
+    while i + stride < n_frames - 1:
+        i += stride
+        info = fh.add_image(imgs[i], i / 50.0)
+        if fh.stage == "default":
+            i_boot, inliers = i, info["init_inliers"]
+            break
+    state = jfused.state_from_handler(fh)
+    est = []
+    for s in range(i_boot + 1, n_frames, chunk):
+        state, o = jfused.vo_scan(state, jnp.stack(imgs[s:s + chunk]),
+                                  ds.cam, cfg, fh.ncx, fh.ncy, fh.img_shape)
+        est.append(np.asarray(o.t_wc))
+    est = np.concatenate(est)
+    n_bench = chunk + chunk * ((n_frames - 1 - i_boot - chunk) // chunk)
+    ate_b = ate_rmse(gt[i_boot + 1:i_boot + 1 + n_bench], est[:n_bench])
+    ate_all = ate_rmse(gt[i_boot + 1:], est)
+    out["bootstrap"] = {"frame": i_boot, "inliers": inliers,
+                        "bench_window": [i_boot + 1, i_boot + n_bench],
+                        "ate_median_mm": ate_b["median"] * 1e3,
+                        "ate_median_mm_to_end": ate_all["median"] * 1e3,
+                        "scale": ate_b["scale"]}
+    out["platform"] = jax.default_backend()
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__)
+                           .resolve().parent.parent))
+    print(json.dumps(jax_reference()))
