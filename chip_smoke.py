@@ -5,7 +5,9 @@ Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and fails (nonzero exit, no result line) without
 one, or without the port beside it.  Phases, each fatal on failure:
 
-1. header: the card's name and power limit; build both kernels with nvcc;
+1. header: the card's name and power limit; build both kernels with nvcc
+   and the native image loader with g++, side by side (which image
+   decoders the machine has: libpng, PIL);
 2. K1 (tile gather, clamp in the kernel) against its plain twin at every
    call-site shape of the fast and accurate steps (reprojection and
    epipolar align windows, keyframe feature tiles, seed detection tiles,
@@ -21,12 +23,12 @@ one, or without the port beside it.  Phases, each fatal on failure:
 4. slice A (keyframes and depth filter stubbed) over 20 frames of the bench
    scene: no failure, one launch of each kernel per frame;
 5. the fast and then the accurate preset (``bench_cfg``, ``ablate=()``)
-   over all 440 frames of the bench scene (441-frame circle, radius
-   0.25 m, half a revolution), seeded from frame 0 as ``bench.py::
-   run_preset`` does: median and max translation error over frames
-   41-440 within the limits, no failed frame, exactly 4 K1 and 1 K2
-   launches per frame, 0 host syncs in one keyframe step and one other
-   step, device ops and device time of each;
+   over frames 1-120 of the bench scene (441-frame circle, radius 0.25 m,
+   half a revolution), seeded from frame 0 as ``bench.py::run_preset``
+   does: median and max translation error over frames 41-120 within the
+   limits, no failed frame, exactly 4 K1 and 1 K2 launches per frame, 0
+   host syncs in one keyframe step and one other step, device ops and
+   device time of each;
 6. the fast step on the CPU (plain twins) over the 20 frames holding the
    first keyframe, from the card's state before them: equal keyframe
    decisions, max |dt_wc| <= 1e-3 m;
@@ -49,15 +51,50 @@ one, or without the port beside it.  Phases, each fatal on failure:
 11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
    card's handler before them: equal results and keyframes, max |dt_wc|
    <= 1e-3 m;
-12. one JSON line of kernel measurements (launches per frame on every
+12. (phases 13-17 write their files under build/chip_smoke/, removed at
+   the end; they run one after another, as every phase does)
+13. ``FrameHandler`` (fast) with the ATAN camera of a ``camera_atan.yaml``
+   the smoke writes and loads with ``load_camera_yaml``, on the bench
+   scene rendered through it, from ground-truth depth over frames 1-440:
+   median and max translation error over frames 41-440 within the JAX
+   handler's CPU figures +10% and +20%, no failed frame, no K2 launch
+   (the reference aligns non-pinhole cameras with the plain loop), host
+   syncs per frame from a replay, the sparse alignment's SVO_TRACE total;
+14. the same with the Omni camera of tests/test_cameras.py over frames
+   1-OMNI_FRAMES (limits over frames 41-OMNI_FRAMES), then the port's
+   handler on the CPU over the same frames from the same start: the first
+   frame where the card and the CPU part by more than 1e-4 m, the largest
+   gap, and the CPU run's errors within the same limits;
+15. the offline driver, blender protocol: the bench scene written in the
+   blender layout (PNG written with zlib, depth maps of every 40th frame),
+   then ``rpg_svo_tpu_torch.tools.benchmark.main`` with ``--dataset
+   blender ... --noise-sigma 1.0 --trace-depth --ply`` in a subprocess
+   that counts the kernels' launches over the run: its ATE RMSE within
+   the JAX driver's CPU figure on the same files +10%, every output file;
+   the driver's own host syncs from a run of its first 30 images here;
+16. the offline driver on the EuRoC layout (every 5th frame as PGM,
+   decoded by the native prefetcher) from the bootstrap: its Sim3 ATE
+   RMSE within the JAX driver's CPU figure +10%; then the experiment YAML
+   over the tree's first 60 images, pose for pose equal to that run
+   (1e-6), whose run counts the host syncs;
+17. checkpoints: the ATAN handler saved at frame 200 and resumed in a
+   fresh handler on the card tracks the next 20 frames as the
+   uninterrupted run (1e-6 m); the port's CPU handler saved at frame 200
+   resumes on the card within 1e-3 m;
+18. one JSON line of kernel measurements (launches per frame on every
    path), the card's line, and the result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import copy
 import functools
+import importlib.util
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,10 +102,13 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
 N_FRAMES = 441                 # the bench scene: frame 0 seeds, 1-440 track
+SHAPE = (480, 752)
+SCENE_KW = dict(trajectory="circle", radius=0.25, revolutions=0.5)
 TIMED_FROM = 41                # bench.py's timed frames are 41-440
 SLICE_A_FRAMES = 20
 CPU_FRAMES = 20
@@ -77,6 +117,11 @@ SNAP_EVERY = 20                # states kept for the replays
 # JAX package's pins (BENCH_r05.json, 2.39/4.34 and 1.89/4.29 mm) plus 10%
 # and 20%
 LIMITS_MM = {"fast": (2.63, 5.2), "accurate": (2.08, 5.15)}
+# frames of phase 5, cut from 440 to keep the smoke within its time budget:
+# both presets to the window past their first keyframe (87; phases 7, 9
+# and 15 run the fast pipeline over all 440 frames); the limits then hold
+# over frames 41-120
+PRESET_FRAMES = {"fast": 120, "accurate": 120}
 # the host pipeline: the JAX FrameHandler from ground-truth depth over the
 # bench scene on the CPU (tests/_torch_port.py jax_reference): 0.48393 mm
 # median and 1.33266 mm max over frames 41-440, +10% and +20%
@@ -88,11 +133,37 @@ BOOT_STRIDE = 5
 BOOT_CHUNK = 40
 BOOT_ATE_LIMIT_MM = 0.16054 * 1.1
 RELOC_FROM = 200               # the relocalization phase starts after it
+# the bench scene through the ATAN and Omni cameras: the JAX FrameHandler
+# from ground-truth depth on the CPU (tests/_torch_port.py
+# jax_camera_reference), median and max translation error over frames
+# 41-440 (ATAN: 1.98860 / 2.76365 mm) and 41-200 (Omni, which tracks frames
+# 1-200 with no failure: 0.92461 / 2.44030 mm), +10% and +20%
+ATAN_LIMITS_MM = (1.98860 * 1.1, 2.76365 * 1.2)
+OMNI_FRAMES = 200
+OMNI_LIMITS_MM = (0.92461 * 1.1, 2.44030 * 1.2)
+# the offline driver on the files phases 15 and 16 write: the JAX driver's
+# ATE RMSE on the CPU on the same files (tests/_torch_port.py
+# jax_driver_reference: 0.42304 mm over 441 poses of the blender protocol,
+# Sim3 0.23949 mm over the 56 poses after the EuRoC bootstrap), +10%
+DRIVER_ATE_LIMITS_M = {"blender": 0.42304e-3 * 1.1,
+                       "euroc": 0.23949e-3 * 1.1}
+DRIVER_OUTPUTS = ("traj_estimate.txt", "trace.csv", "translation_error.txt",
+                  "orientation_error.txt", "depth_error.txt",
+                  "map_points.ply", "report.json")
+DRIVER_SYNC_FRAMES = 30        # the in-process run that counts host syncs
+DRIVER_FILES = ("benchmark.py:", "trajectory.py:")   # the driver's own syncs
+DRIVER_TIMEOUT_S = 600
+EXPERIMENT_IMAGES = 60         # the experiment YAML's run on the EuRoC tree
+CKPT_AT = 200                  # the ATAN handler is saved after this frame
+CKPT_FRAMES = 20
+CKPT_TOL_M = 1e-6              # resumed on the card against uninterrupted
 TRACE_NAMES = ("pyramid_creation", "sparse_img_align", "reproject_kfs",
                "reproject_candidates", "feature_align", "reproject",
                "pose_optimizer", "point_optimizer", "local_ba")
 # card vs CPU trajectory agreement (m) over CPU_FRAMES frames
 CPU_TOL_M = 1e-3
+# the Omni run on the CPU and on the card: where they part (reported)
+SPLIT_M = 1e-4
 # K2 vs its twin (m, and rotation entries): float summation order only;
 # tracked counts and iterations must be equal
 K2_TOL = 1e-5
@@ -115,6 +186,91 @@ K2_SOLVE_FLOPS = 300
 MAX_SLICE_A_DEVICE_OPS = 5030
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+
+
+# --- the scenes and files of phases 13-17 -----------------------------------
+# (tests/_torch_port.py writes the same files for the JAX package's figures)
+# svo_ros/param/camera_atan.yaml's calibration, as tests/test_cameras.py uses
+ATAN_YAML = ("cam_model: ATAN\ncam_width: 752\ncam_height: 480\n"
+             "cam_fx: 0.511496\ncam_fy: 0.802603\ncam_cx: 0.530199\n"
+             "cam_cy: 0.496011\ncam_d0: 0.934479\n")
+CAM_PINHOLE = (315.5, 315.5, 376.0, 240.0)
+EUROC_STRIDE = 5               # the EuRoC tree holds every 5th bench frame
+DEPTH_EVERY = 40               # the blender tree's depth maps: every 40th
+
+
+def omni_calibration():
+    """(poly, inv_poly) of tests/test_cameras.py's Omni camera: the forward
+    polynomial chosen, the inverse fitted (as the ocam toolbox does)."""
+    poly = np.array([-200.0, 0.0, 1e-3, 0.0, 0.0])
+    rho = np.linspace(1e-3, 420.0, 2000)
+    theta = np.arctan2(poly[0] + poly[2] * rho ** 2, rho)
+    return poly, np.polynomial.polynomial.polyfit(theta, rho, 9)
+
+
+def to_u8(img) -> np.ndarray:
+    return np.clip(np.asarray(img), 0, 255).astype(np.uint8)
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """8-bit grayscale PNG with the standard library (zlib, struct)."""
+    import struct
+    import zlib
+    h, w = img.shape
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_pgm(path, img: np.ndarray) -> None:
+    """Binary PGM (P5), which the native loader decodes without libpng."""
+    h, w = img.shape
+    Path(path).write_bytes(f"P5\n{w} {h}\n255\n".encode() + img.tobytes())
+
+
+def write_blender(root, imgs, t, q, depths) -> None:
+    """The blender layout (rpg_svo_tpu_torch/io/datasets.BlenderDataset):
+    imgs (N, H, W) uint8, t (N, 3), q (N, 4) xyzw, depths {i: (H, W)}."""
+    root = Path(root)
+    (root / "img").mkdir(parents=True, exist_ok=True)
+    (root / "depth").mkdir(exist_ok=True)
+    lines = []
+    for i, img in enumerate(imgs):
+        name = f"frame_{i:06d}"
+        write_png(root / "img" / f"{name}_0.png", img)
+        if i in depths:
+            np.savetxt(root / "depth" / f"{name}_0.depth",
+                       np.asarray(depths[i]).ravel()[None], fmt="%.6f")
+        lines.append(f"{name} " + " ".join(repr(float(v)) for v in
+                                           (*t[i], *q[i])))
+    (root / "trajectory.txt").write_text("\n".join(lines) + "\n")
+
+
+def write_euroc(root, frames, imgs, t, q) -> None:
+    """The EuRoC layout with PGM images: frames (M,) bench frame indices
+    of imgs (M, H, W) uint8 at i / 50 s, the ground truth of every frame
+    (t (N, 3), q (N, 4) xyzw) in state_groundtruth_estimate0."""
+    cam = Path(root) / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True, exist_ok=True)
+    rows = ["#timestamp [ns],filename"]
+    for i, img in zip(frames, imgs):
+        name = f"{i * 20_000_000:019d}.pgm"
+        write_pgm(cam / "data" / name, img)
+        rows.append(f"{i * 20_000_000},{name}")
+    (cam / "data.csv").write_text("\n".join(rows) + "\n")
+    gt = Path(root) / "mav0" / "state_groundtruth_estimate0"
+    gt.mkdir(parents=True, exist_ok=True)
+    rows = ["#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z"]
+    for i in range(len(t)):
+        rows.append(",".join([str(i * 20_000_000)] + [repr(float(v)) for v in
+                              (*t[i], q[i][3], q[i][0], q[i][1], q[i][2])]))
+    gt.joinpath("data.csv").write_text("\n".join(rows) + "\n")
 
 
 def _smi_line() -> str:
@@ -221,6 +377,369 @@ def _snapshot(fh):
     return h
 
 
+def _cfg(preset: str):
+    """The bench configuration of a preset (bench.py's make_cfg)."""
+    from rpg_svo_tpu_torch.config import bench_cfg
+    return bench_cfg(preset)
+
+
+class _Scene(NamedTuple):
+    """The bench scene as the handler phases use it: the dataset (its
+    texture and poses), the image shape, the device, frame 0's pose and
+    the ground-truth positions of frames 1.."""
+    ds: object
+    shape: tuple
+    dev: object
+    T0: object
+    gt: np.ndarray
+
+
+def _reset_counts():
+    import torch
+    from rpg_svo_tpu_torch.ops import align_kernel, tiles
+    torch.cuda.synchronize()
+    tiles.tile_gather_kernel.launches = 0
+    align_kernel.sparse_align_kernel.launches = 0
+
+
+def _read_counts() -> dict:
+    import torch
+    from rpg_svo_tpu_torch.ops import align_kernel, tiles
+    torch.cuda.synchronize()
+    return {"tile_gather": tiles.tile_gather_kernel.launches,
+            "sparse_align": align_kernel.sparse_align_kernel.launches}
+
+
+def _handler_run(scene, cfg, n, camera, frames, first, label):
+    """FrameHandler from ground-truth depth (first: frame 0's image and
+    depth) over frames 1..n: (summary, infos, positions, snapshots every
+    SNAP_EVERY frames)."""
+    import torch
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
+    fh = FrameHandler(camera, cfg, scene.shape, device=scene.dev)
+    fh.set_first_frame_with_depth(first[0], scene.T0.inverse(), first[1])
+    snaps = {0: _snapshot(fh)}
+    infos, pos = [], []
+    _reset_counts()
+    t0 = time.perf_counter()
+    for i in range(1, n + 1):
+        infos.append(fh.add_image(frames[i - 1], i / 50.0))
+        pos.append(fh.last_frame.T_f_w.inverse().t)
+        if i % SNAP_EVERY == 0:
+            snaps[i] = _snapshot(fh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    pos = torch.stack(pos).cpu().numpy()
+    assert pos.shape == (n, 3) and np.isfinite(pos).all()
+    terr = np.linalg.norm(pos - scene.gt[:n], axis=-1)[TIMED_FROM - 1:]
+    failed = [i for i, f in enumerate(infos, 1) if f["result"] == "failure"]
+    kfs = [i for i, f in enumerate(infos, 1) if f.get("is_keyframe")]
+    stage_ms = {k: sum(f.get(k, 0.0) for f in infos) / n * 1e3
+                for k in TRACE_NAMES}
+    summary = {"frames": n, "median_terr_mm": float(np.median(terr)) * 1e3,
+               "max_terr_mm": float(terr.max()) * 1e3,
+               "ms_per_frame": wall / n * 1e3,
+               "stage_ms_per_frame": stage_ms,
+               "timer_syncs_per_frame":
+                   sum(f["timer_syncs"] for f in infos) / n,
+               "keyframes": kfs, "failed": failed, "launches": launches,
+               "launches_per_frame": {k: v / n for k, v in launches.items()}}
+    print(f"# FrameHandler {label}: {n} frames, "
+          f"{summary['ms_per_frame']:.2f} ms/frame; terr over frames "
+          f"{TIMED_FROM}-{n}: median {summary['median_terr_mm']:.4f} mm, "
+          f"max {summary['max_terr_mm']:.4f} mm; keyframes {kfs}; failed "
+          f"{failed}; launches {launches}; stage ms/frame "
+          + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}),
+          flush=True)
+    assert not failed, f"FrameHandler {label}: frames failed: {failed}"
+    assert kfs, f"FrameHandler {label}: no keyframe"
+    return summary, infos, pos, snaps
+
+
+def _sync_replay(snaps, frames, infos, pos, k):
+    """Host syncs per frame (sync debug mode plus the stage timers'
+    synchronizes) over the CPU_FRAMES frames holding frame k, replayed
+    from the snapshot before them; the replay agrees with the run."""
+    import torch
+    s = max(i for i in snaps if i < k and k <= i + CPU_FRAMES)
+    window = range(s + 1, s + CPU_FRAMES + 1)
+    h = _snapshot(snaps[s])
+
+    def replay():
+        return [(h.add_image(frames[j - 1], j / 50.0),
+                 h.last_frame.T_f_w.inverse().t) for j in window]
+    out, syncs = _host_syncs(torch, replay)
+    for (info, t_wc), j in zip(out, window):
+        assert info["result"] == infos[j - 1]["result"], j
+        assert float(np.abs(t_wc.cpu().numpy() - pos[j - 1]).max()) < 1e-5
+    dbg = len(syncs) / CPU_FRAMES
+    tim = sum(i["timer_syncs"] for i, _ in out) / CPU_FRAMES
+    return {"frames": [s + 1, s + CPU_FRAMES],
+            "debug_mode_syncs_per_frame": dbg,
+            "timer_syncs_per_frame": tim,
+            "host_syncs_per_frame": dbg + tim,
+            "sync_sites": sorted(set(syncs))}
+
+
+def _camera_run(scene, cfg, camera, label, n, limits):
+    """_handler_run over the bench scene rendered through `camera`, with
+    the sync replay of the window holding the first keyframe.  Sparse
+    alignment runs the plain loop for a non-pinhole camera, as the
+    reference dispatches (no K2 launch)."""
+    from rpg_svo_tpu_torch.utils.synthetic import render_frame
+    ds = scene.ds
+    first = render_frame(camera, ds.tex, ds.poses[0], scene.shape)
+    frames = [render_frame(camera, ds.tex, ds.poses[i], scene.shape)[0]
+              for i in range(1, n + 1)]
+    sm, infos, pos, snaps = _handler_run(scene, cfg, n, camera, frames,
+                                         first, label)
+    import torch
+    sm["replay"] = _sync_replay(snaps, frames, infos, pos, sm["keyframes"][0])
+    sm["host_syncs_per_frame"] = sm["replay"]["host_syncs_per_frame"]
+    # device ops and time of the replay window's first (ordinary) frame
+    s = sm["replay"]["frames"][0] - 1
+    h = _snapshot(snaps[s])
+    ops, dms, by, _ = _device_profile(
+        torch, lambda: h.add_image(frames[s], (s + 1) / 50.0))
+    sm["step"] = {"frame": s + 1, "device_ops": ops, "device_ms": dms,
+                  "kernel_device_ms": by}
+    sm["sparse_img_align_total_s"] = \
+        sm["stage_ms_per_frame"]["sparse_img_align"] * n / 1e3
+    print(f"# {label}: {sm['host_syncs_per_frame']:.2f} host syncs per "
+          f"frame ({sm['replay']['debug_mode_syncs_per_frame']:.2f} reads, "
+          f"{sm['replay']['timer_syncs_per_frame']:.2f} stage timers); "
+          f"launches per frame {sm['launches_per_frame']}; sparse "
+          f"alignment {sm['sparse_img_align_total_s']:.3f} s in all; frame "
+          f"{s + 1}: {ops} device ops, {dms:.3f} ms device time "
+          f"(limits {limits[0]:.4f} / {limits[1]:.4f} mm)", flush=True)
+    assert sm["median_terr_mm"] <= limits[0] \
+        and sm["max_terr_mm"] <= limits[1], (label, sm, limits)
+    assert sm["launches"]["sparse_align"] == 0 \
+        and sm["launches"]["tile_gather"] > 0, (label, sm["launches"])
+    return sm, pos, snaps, frames
+
+
+def _cpu_rerun(scene, cfg, camera, frames, card_pos, limits, label):
+    """The port's FrameHandler on the CPU over the card's frames (copied)
+    from the same start: the first frame where the CPU and the card part
+    by more than SPLIT_M, the largest gap, and the CPU run's errors, held
+    to the same limits."""
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
+    from rpg_svo_tpu_torch.geometry.se3 import SE3
+    from rpg_svo_tpu_torch.utils.synthetic import render_frame
+    img0, depth0 = render_frame(camera, scene.ds.tex, scene.ds.poses[0],
+                                scene.shape)
+    T0 = scene.T0.inverse()
+    fh = FrameHandler(camera, cfg, scene.shape, device="cpu")
+    fh.set_first_frame_with_depth(img0.cpu(), SE3(T0.R.cpu(), T0.t.cpu()),
+                                  depth0.cpu())
+    t0 = time.perf_counter()
+    pos, failed = [], []
+    for i, img in enumerate(frames, 1):
+        if fh.add_image(img.cpu(), i / 50.0)["result"] == "failure":
+            failed.append(i)
+        pos.append(fh.last_frame.T_f_w.inverse().t.numpy())
+    wall = time.perf_counter() - t0
+    n = len(frames)
+    pos = np.stack(pos)
+    gap = np.abs(pos - card_pos).max(axis=1)
+    split = next((i for i, g in enumerate(gap, 1) if g > SPLIT_M), None)
+    terr = np.linalg.norm(pos - scene.gt[:n], axis=-1)[TIMED_FROM - 1:]
+    res = {"frames": n, "first_split_frame": split,
+           "max_gap_m": float(gap.max()),
+           "median_terr_mm": float(np.median(terr)) * 1e3,
+           "max_terr_mm": float(terr.max()) * 1e3, "failed": failed,
+           "cpu_ms_per_frame": wall / n * 1e3}
+    print(f"# {label} on the CPU over the card's frames 1-{n}: first frame "
+          f"more than {SPLIT_M} m from the card {split}, largest gap "
+          f"{res['max_gap_m']:.3e} m; terr over frames {TIMED_FROM}-{n}: "
+          f"median {res['median_terr_mm']:.4f} mm, max "
+          f"{res['max_terr_mm']:.4f} mm; failed {failed}; CPU "
+          f"{res['cpu_ms_per_frame']:.1f} ms/frame", flush=True)
+    assert not failed, (label, failed)
+    assert res["median_terr_mm"] <= limits[0] \
+        and res["max_terr_mm"] <= limits[1], (label, res, limits)
+    return res
+
+
+def _bench_files(ds):
+    """The bench scene's poses (t (N, 3), q (N, 4) xyzw) and 8-bit images,
+    as phases 15 and 16 write them."""
+    from rpg_svo_tpu_torch.geometry.se3 import rot_to_quat
+    t = np.stack([p.t.cpu().numpy() for p in ds.poses])
+    q = np.stack([rot_to_quat(p.R).cpu().numpy() for p in ds.poses])
+    return t, q, [to_u8(ds.frame(i)[0].cpu().numpy())
+                  for i in range(len(ds.poses))]
+
+
+# the driver as a subprocess, as a user starts it, with the kernels' launch
+# counts read inside it: set to 0 just before main() and printed just after
+DRIVER_STUB = (
+    "import json\n"
+    "import torch\n"
+    "from rpg_svo_tpu_torch.ops import align_kernel, tiles\n"
+    "from rpg_svo_tpu_torch.tools import benchmark\n"
+    "tiles.tile_gather_kernel.launches = 0\n"
+    "align_kernel.sparse_align_kernel.launches = 0\n"
+    "benchmark.main()\n"
+    "torch.cuda.synchronize()\n"
+    "print('# launches ' + json.dumps({\n"
+    "    'tile_gather': tiles.tile_gather_kernel.launches,\n"
+    "    'sparse_align': align_kernel.sparse_align_kernel.launches}))\n")
+
+
+def _driver_syncs(torch, run, n_frames: int) -> dict:
+    """Host syncs of a driver run (sync debug mode) per frame of the
+    n_frames it is counted over: the driver's own (DRIVER_FILES), and all
+    of them (the stage timers' synchronizes aside)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep, syncs = _host_syncs(torch, run)
+    own = [x for x in syncs if x.startswith(DRIVER_FILES)]
+    return rep, {"frames": n_frames, "driver_syncs_per_frame": len(own)
+                 / n_frames, "all_debug_mode_syncs_per_frame":
+                 len(syncs) / n_frames, "driver_sync_sites": sorted(set(own))}
+
+
+def _blender_phase(root: Path, work: Path, ds, t_all, q_all, u8) -> dict:
+    """Phase 15: the bench scene as a blender tree, the driver on it as a
+    subprocess (its launches counted there), then the driver's host syncs
+    from a run of its first DRIVER_SYNC_FRAMES images in this process."""
+    import torch
+    from rpg_svo_tpu_torch.tools import benchmark as bench_driver
+    t0 = time.perf_counter()
+    write_blender(work / "blender", u8, t_all, q_all,
+                  {i: ds.frame(i)[1].cpu().numpy()
+                   for i in range(0, N_FRAMES, DEPTH_EVERY)})
+    write_s = time.perf_counter() - t0
+    out_dir = work / "out_blender"
+
+    def argv(frames, out):
+        return ["--dataset", "blender", "--path", str(work / "blender"),
+                "--frames", str(frames), "--cam",
+                ",".join(str(v) for v in CAM_PINHOLE), "--noise-sigma",
+                "1.0", "--trace-depth", "--out", str(out)]
+    proc = subprocess.run([sys.executable, "-c", DRIVER_STUB,
+                           *argv(N_FRAMES, out_dir), "--ply"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=DRIVER_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    launches = json.loads(next(x for x in proc.stdout.splitlines()
+                               if x.startswith("# launches "))[11:])
+    rep = json.loads((out_dir / "report.json").read_text())
+    for name in DRIVER_OUTPUTS:
+        assert (out_dir / name).is_file(), name
+    n_images = rep["frames"] + 1       # frame 0 is seeded from its depth
+    # the driver's own syncs over its first images, in this process
+    args = bench_driver.parser().parse_args(
+        argv(DRIVER_SYNC_FRAMES, work / "out_blender_sync"))
+    sync_rep, syncs = _driver_syncs(
+        torch, lambda: bench_driver.run(args), DRIVER_SYNC_FRAMES - 1)
+    assert sync_rep["frames"] == DRIVER_SYNC_FRAMES - 1, sync_rep["frames"]
+    res = {"frames": rep["frames"], "images": n_images, "fps": rep["fps"],
+           "wall_s": rep["wall_s"], "write_s": write_s,
+           "ms_per_frame": rep["wall_s"] / rep["frames"] * 1e3,
+           "ate": rep["ate"], "rpe_delta1": rep["rpe_delta1"],
+           "depth_error": rep["depth_error"], "syncs": syncs,
+           "launches": launches,
+           "launches_per_image": {k: v / n_images
+                                  for k, v in launches.items()}}
+    print(f"# driver, blender protocol: {rep['frames']} frames, "
+          f"fps {rep['fps']}, wall {rep['wall_s']} s (the tree written in "
+          f"{write_s:.1f} s); ATE rmse {rep['ate']['rmse'] * 1e3:.4f} mm "
+          f"(limit {DRIVER_ATE_LIMITS_M['blender'] * 1e3:.4f}), RPE(1) "
+          f"trans rmse {rep['rpe_delta1']['trans_rmse'] * 1e3:.4f} mm, "
+          f"depth error p50 {rep['depth_error']['p50'] * 1e3:.3f} mm over "
+          f"{rep['depth_error']['n']} features; launches {launches} over "
+          f"{n_images} images; the driver's own syncs "
+          f"{syncs['driver_syncs_per_frame']:.2f} per frame over frames 1-"
+          f"{DRIVER_SYNC_FRAMES - 1} at {syncs['driver_sync_sites']}",
+          flush=True)
+    assert rep["frames"] == N_FRAMES - 1, rep["frames"]
+    assert rep["ate"]["rmse"] <= DRIVER_ATE_LIMITS_M["blender"], rep["ate"]
+    assert rep["rpe_delta1"]["n"] > 0 and rep["depth_error"]["n"] > 0
+    (root / "chiprun_out" / "chip_smoke_driver_blender_report.json") \
+        .write_text(json.dumps(rep, indent=2))
+    return res
+
+
+def _euroc_phase(root: Path, work: Path, shape, t_all, q_all, u8) -> dict:
+    """Phase 16: the driver on the EuRoC tree from the bootstrap, then the
+    experiment YAML over its first images, whose run counts the host
+    syncs."""
+    import torch
+    from rpg_svo_tpu_torch.tools import benchmark as bench_driver
+    sel = list(range(0, N_FRAMES, EUROC_STRIDE))
+    write_euroc(work / "euroc", sel, [u8[i] for i in sel], t_all, q_all)
+    cam_arg = ",".join(str(v) for v in CAM_PINHOLE)
+    args = bench_driver.parser().parse_args([
+        "--dataset", "euroc", "--path", str(work / "euroc"), "--frames",
+        str(N_FRAMES), "--cam", cam_arg, "--out", str(work / "out_euroc")])
+    printed = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(printed):
+        rep = bench_driver.run(args)
+    launches = _read_counts()
+    source = [x for x in printed.getvalue().splitlines()
+              if x.startswith("# image source")]
+    traj = np.loadtxt(work / "out_euroc" / "traj_estimate.txt", ndmin=2)
+    assert len(traj), "the EuRoC run never left the bootstrap"
+    res = {"images": len(sel), "frames": rep["frames"], "fps": rep["fps"],
+           "wall_s": rep["wall_s"],
+           "ms_per_frame": rep["wall_s"] / rep["frames"] * 1e3,
+           "image_source": source,
+           "bootstrap_frame": int(round(traj[0, 0] * 50)),
+           "ate": rep["ate"], "rpe_delta1": rep.get("rpe_delta1"),
+           "launches": launches,
+           "launches_per_image": {k: v / len(sel)
+                                  for k, v in launches.items()}}
+    print(f"# driver, EuRoC layout: {source}; {len(sel)} images, the "
+          f"default stage from frame {res['bootstrap_frame']}; fps "
+          f"{rep['fps']}, wall {rep['wall_s']} s; Sim3 ATE rmse "
+          f"{rep['ate']['rmse'] * 1e3:.4f} mm (limit "
+          f"{DRIVER_ATE_LIMITS_M['euroc'] * 1e3:.4f}, scale "
+          f"{rep['ate']['scale']:.4f}, {rep['ate']['n']} poses); launches "
+          f"{launches}", flush=True)
+    assert source and "native prefetcher" in source[0], source
+    assert rep["ate"]["rmse"] <= DRIVER_ATE_LIMITS_M["euroc"], rep["ate"]
+    (root / "chiprun_out" / "chip_smoke_driver_euroc_report.json") \
+        .write_text(json.dumps(rep, indent=2))
+    # the experiment protocol over the first EXPERIMENT_IMAGES images of the
+    # same tree: the YAML names vo_fast with the driver's grid, the tree's
+    # dataset_params.yaml the camera; the same card and configuration
+    # track as the run above, pose for pose
+    (work / "euroc" / "dataset_params.yaml").write_text(
+        "cam0:\n  cam_model: Pinhole\n"
+        f"  cam_width: {shape[1]}\n  cam_height: {shape[0]}\n"
+        + "".join(f"  cam_{k}: {v}\n" for k, v in zip(
+            ("fx", "fy", "cx", "cy"), CAM_PINHOLE)))
+    (work / "experiment.yaml").write_text(
+        "experiment_label: smoke\nparam_settings: vo_fast\n"
+        "dataset: euroc\ngrid_size: 25\n")
+    args = bench_driver.parser().parse_args([
+        "--experiment", str(work / "experiment.yaml"), "--dataset-dir",
+        str(work), "--frames", str(EXPERIMENT_IMAGES), "--out",
+        str(work / "out_experiment")])
+    exp_rep, res["syncs"] = _driver_syncs(
+        torch, lambda: bench_driver.run_experiment(args)["euroc"],
+        EXPERIMENT_IMAGES)
+    traj_exp = np.loadtxt(work / "out_experiment" / "smoke_euroc"
+                          / "traj_estimate.txt", ndmin=2)
+    exp_dt = float(np.abs(traj_exp[:, 1:]
+                          - traj[:len(traj_exp), 1:]).max())
+    res["experiment"] = {"images": EXPERIMENT_IMAGES, "poses": len(traj_exp),
+                         "max_dpose": exp_dt, "ate": exp_rep["ate"]}
+    print(f"# experiment YAML on the EuRoC tree, {EXPERIMENT_IMAGES} images: "
+          f"{len(traj_exp)} poses, max |dt|, |dq| against the run above "
+          f"{exp_dt:.3e} (tol {CKPT_TOL_M}); host syncs per image "
+          f"{res['syncs']['all_debug_mode_syncs_per_frame']:.2f}, the "
+          f"driver's own {res['syncs']['driver_syncs_per_frame']:.2f}",
+          flush=True)
+    assert np.array_equal(traj_exp[:, 0], traj[:len(traj_exp), 0]) \
+        and exp_dt <= CKPT_TOL_M, exp_dt
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -234,14 +753,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root))
     from rpg_svo_tpu_torch.analysis.ate import ate_rmse
-    from rpg_svo_tpu_torch.config import bench_cfg
-    from rpg_svo_tpu_torch.core import fused
+    from rpg_svo_tpu_torch.core import checkpoint, fused
     from rpg_svo_tpu_torch.core.convert import (
         handler_from_numpy, handler_to_numpy, state_from_numpy,
         state_to_numpy)
     from rpg_svo_tpu_torch.core.pipeline import FrameHandler
     from rpg_svo_tpu_torch.core.reprojector import attempt_budget
+    from rpg_svo_tpu_torch.geometry.cameras import ATANCamera, OmniCamera
     from rpg_svo_tpu_torch.geometry.se3 import SE3
+    from rpg_svo_tpu_torch.io.camera_loader import load_camera_yaml
+    from rpg_svo_tpu_torch.native import loader as native_loader
     from rpg_svo_tpu_torch.ops import align_kernel, cuda_build, tiles
     from rpg_svo_tpu_torch.ops.detector import grid_dims
     from rpg_svo_tpu_torch.ops.pyramid import build_padded_pyramid
@@ -253,21 +774,38 @@ def main() -> int:
     print(f"# card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(n):
+        """Seconds from the start to phase n, printed and kept."""
+        phase_s[n] = time.perf_counter() - t_start
+        print(f"# phase {n} starts at {phase_s[n]:.1f} s", flush=True)
+
 
     # --- 1. build ----------------------------------------------------------
+    phase(1)
     t0 = time.perf_counter()
-    reports = cuda_build.build()
-    print(f"# built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the native image loader (g++) builds beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_loader.build)
+        reports = cuda_build.build()
+        native_lib = native.result()
+    print(f"# built kernels and the native image loader in "
+          f"{time.perf_counter() - t0:.1f} s; loader {native_lib} (PNG: "
+          f"{'libpng' if native_loader.has_png() else 'none, PGM only'}); "
+          f"PIL importable: {importlib.util.find_spec('PIL') is not None}; "
+          f"yaml importable: {importlib.util.find_spec('yaml') is not None}",
+          flush=True)
+    assert native_lib is not None, "the native image loader did not build"
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# ptxas {name}: {line.strip()}")
 
-    shape = (480, 752)
-    cfgs = {p: bench_cfg(p) for p in ("fast", "accurate")}
-    ds = SyntheticDataset(n_frames=N_FRAMES, trajectory="circle",
-                          radius=0.25, revolutions=0.5, shape=shape,
-                          device=dev)
+    shape = SHAPE
+    cfgs = {p: _cfg(p) for p in ("fast", "accurate")}
+    ds = SyntheticDataset(n_frames=N_FRAMES, shape=shape, device=dev,
+                          **SCENE_KW)
     cam = ds.cam
     ncx, ncy = grid_dims(shape[1], shape[0], cfgs["fast"].grid_size)
     C = ncx * ncy
@@ -275,6 +813,7 @@ def main() -> int:
     pad0 = build_padded_pyramid(img0, cfgs["fast"].n_levels_total)
 
     # --- 2. K1 against its twin at the call-site shapes ---------------------
+    phase(2)
     rng = np.random.default_rng(0)
     k1_cases = [("sparse_align_twin", 17, 128, (4, 3, 2)),
                 ("ref_patch", 8, 128, (4, 3, 2)),
@@ -331,6 +870,7 @@ def main() -> int:
               f"{plain_ms:.4f} ms, index call {lib_ms:.4f} ms", flush=True)
 
     # --- 3. K2 against its twin at N = 128 and N = 256 ----------------------
+    phase(3)
     pad5 = build_padded_pyramid(ds.frame(5)[0], cfgs["fast"].n_levels_total)
     seeded = {p: fused.seed_first_frame_with_depth(
         img0, T0.inverse(), depth0, cam, cfg, img_shape=shape, device=dev)
@@ -418,25 +958,16 @@ def main() -> int:
     imgs = [ds.frame(i)[0] for i in range(1, N_FRAMES)]
     gt = np.stack([ds.poses[i].t.cpu().numpy() for i in range(1, N_FRAMES)])
 
-    def reset_counts():
-        torch.cuda.synchronize()
-        tiles.tile_gather_kernel.launches = 0
-        align_kernel.sparse_align_kernel.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {"tile_gather": tiles.tile_gather_kernel.launches,
-                "sparse_align": align_kernel.sparse_align_kernel.launches}
-
     # --- 4. slice A: keyframes and depth filter stubbed ----------------------
+    phase(4)
     cfg_a = cfgs["fast"].replace(ablate=("kf", "df"))
     state = seeded["fast"]
-    reset_counts()
+    _reset_counts()
     outs = []
     for img in imgs[:SLICE_A_FRAMES]:
         state, out = fused.vo_step(state, img, cam, cfg_a, ncx, ncy, shape)
         outs.append(out)
-    launches_a = read_counts()
+    launches_a = _read_counts()
     pos = np.stack([o.t_wc.cpu().numpy() for o in outs])
     terr_a = np.linalg.norm(pos - gt[:SLICE_A_FRAMES], axis=-1)
     assert not any(bool(o.failed) for o in outs), "slice A: a frame failed"
@@ -453,28 +984,29 @@ def main() -> int:
     assert ops_a <= MAX_SLICE_A_DEVICE_OPS, ops_a
 
     # --- 5. the fast and accurate presets over the whole scene --------------
+    phase(5)
     def run_path(preset):
         cfg = cfgs[preset]
         state = seeded[preset]
         snaps = {0: state}
         outs = []
-        reset_counts()
+        n = PRESET_FRAMES[preset]
+        _reset_counts()
         t0 = time.perf_counter()
-        for i, img in enumerate(imgs, start=1):
+        for i, img in enumerate(imgs[:n], start=1):
             state, out = fused.vo_step(state, img, cam, cfg, ncx, ncy, shape)
             outs.append(out)
             if i % SNAP_EVERY == 0:
                 snaps[i] = state
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_counts()
-        n = len(imgs)
+        launches = _read_counts()
         failed = [i + 1 for i, o in enumerate(outs) if bool(o.failed)]
         kf_frames = [i + 1 for i, o in enumerate(outs)
                      if bool(o.is_keyframe)]
         pos = np.stack([o.t_wc.cpu().numpy() for o in outs])
         assert pos.shape == (n, 3) and np.isfinite(pos).all()
-        terr = np.linalg.norm(pos - gt, axis=-1)[TIMED_FROM - 1:]
+        terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
         med, mx = float(np.median(terr)) * 1e3, float(terr.max()) * 1e3
         print(f"# {preset}: {n} frames, {wall / n * 1e3:.2f} ms/frame; "
               f"terr over frames {TIMED_FROM}-{n}: median {med:.3f} mm, max "
@@ -530,6 +1062,7 @@ def main() -> int:
     del acc_snaps
 
     # --- 6. the CPU path over the window holding the first keyframe --------
+    phase(6)
     k = fast["keyframes"][0]
     s_fused = s = max(i for i in fast_snaps if i < k and k <= i + CPU_FRAMES)
     cpu_state = state_from_numpy(state_to_numpy(fast_snaps[s]), device="cpu")
@@ -555,76 +1088,26 @@ def main() -> int:
     assert dpos <= CPU_TOL_M, dpos
 
     # --- 7. FrameHandler, fast, from ground-truth depth ---------------------
+    phase(7)
+    scene = _Scene(ds, shape, dev, T0, gt)
+
     def handler_run(preset, n):
-        cfg = cfgs[preset]
-        fh = FrameHandler(cam, cfg, shape, device=dev)
-        fh.set_first_frame_with_depth(img0, T0.inverse(), depth0)
-        snaps = {0: _snapshot(fh)}
-        infos, pos = [], []
-        reset_counts()
-        t0 = time.perf_counter()
-        for i in range(1, n + 1):
-            infos.append(fh.add_image(imgs[i - 1], i / 50.0))
-            pos.append(fh.last_frame.T_f_w.inverse().t)
-            if i % SNAP_EVERY == 0:
-                snaps[i] = _snapshot(fh)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        pos = torch.stack(pos).cpu().numpy()
-        assert pos.shape == (n, 3) and np.isfinite(pos).all()
-        terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
-        failed = [i for i, f in enumerate(infos, 1) if f["result"] == "failure"]
-        kfs = [i for i, f in enumerate(infos, 1) if f.get("is_keyframe")]
-        stage_ms = {k: sum(f.get(k, 0.0) for f in infos) / n * 1e3
-                    for k in TRACE_NAMES}
-        summary = {"frames": n, "median_terr_mm": float(np.median(terr)) * 1e3,
-                   "max_terr_mm": float(terr.max()) * 1e3,
-                   "ms_per_frame": wall / n * 1e3,
-                   "stage_ms_per_frame": stage_ms,
-                   "timer_syncs_per_frame":
-                       sum(f["timer_syncs"] for f in infos) / n,
-                   "keyframes": kfs, "failed": failed, "launches": launches,
-                   "launches_per_frame": {k: v / n
-                                          for k, v in launches.items()}}
-        print(f"# FrameHandler {preset}: {n} frames, "
-              f"{summary['ms_per_frame']:.2f} ms/frame; terr over frames "
-              f"{TIMED_FROM}-{n}: median {summary['median_terr_mm']:.4f} mm, "
-              f"max {summary['max_terr_mm']:.4f} mm; keyframes {kfs}; failed "
-              f"{failed}; launches {launches}; stage ms/frame "
-              + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}),
-              flush=True)
-        assert not failed, f"FrameHandler {preset}: frames failed: {failed}"
-        assert kfs, f"FrameHandler {preset}: no keyframe"
-        return summary, infos, pos, snaps
+        return _handler_run(scene, cfgs[preset], n, cam, imgs, (img0, depth0),
+                            preset)
 
     handler, h_infos, h_pos, h_snaps = handler_run("fast", len(imgs))
     assert handler["median_terr_mm"] <= HANDLER_LIMITS_MM[0] \
         and handler["max_terr_mm"] <= HANDLER_LIMITS_MM[1], \
         (handler["median_terr_mm"], handler["max_terr_mm"], HANDLER_LIMITS_MM)
+
     # replay of the 20 frames holding the first keyframe: host syncs per
     # frame, then device ops and time of the keyframe step and the next
     k = handler["keyframes"][0]
-    s = max(i for i in h_snaps if i < k and k <= i + CPU_FRAMES)
-    window = range(s + 1, s + CPU_FRAMES + 1)
-    h = _snapshot(h_snaps[s])
-
-    def replay():
-        return [(h.add_image(imgs[j - 1], j / 50.0),
-                 h.last_frame.T_f_w.inverse().t) for j in window]
-    out, syncs = _host_syncs(torch, replay)
-    for (info, t_wc), j in zip(out, window):
-        assert info["result"] == h_infos[j - 1]["result"], j
-        assert float(np.abs(t_wc.cpu().numpy() - h_pos[j - 1]).max()) < 1e-5
-    handler["replay"] = {
-        "frames": [s + 1, s + CPU_FRAMES],
-        "debug_mode_syncs_per_frame": len(syncs) / CPU_FRAMES,
-        "timer_syncs_per_frame": sum(i["timer_syncs"] for i, _ in out)
-        / CPU_FRAMES,
-        "sync_sites": sorted(set(syncs))}
+    handler["replay"] = _sync_replay(h_snaps, imgs, h_infos, h_pos, k)
     handler["host_syncs_per_frame"] = \
-        handler["replay"]["debug_mode_syncs_per_frame"] \
-        + handler["replay"]["timer_syncs_per_frame"]
+        handler["replay"]["host_syncs_per_frame"]
+    s = handler["replay"]["frames"][0] - 1
+    window = range(s + 1, s + CPU_FRAMES + 1)
     h = _snapshot(h_snaps[s])
     for j in range(s + 1, k):
         h.add_image(imgs[j - 1], j / 50.0)
@@ -642,6 +1125,7 @@ def main() -> int:
           f"steps {json.dumps(handler['steps'])}", flush=True)
 
     # --- 8. FrameHandler, accurate, to the first keyframe and past it ------
+    phase(8)
     handler_acc, acc_infos, _, _ = handler_run("accurate", HANDLER_ACC_FRAMES)
     acc_kf = handler_acc["keyframes"][0]
     assert "local_ba" in acc_infos[acc_kf - 1], "no local BA at the keyframe"
@@ -650,9 +1134,10 @@ def main() -> int:
         and handler_acc["max_terr_mm"] <= lim[1], handler_acc
 
     # --- 9. the bench.py --bootstrap protocol (fast) ------------------------
+    phase(9)
     cfg = cfgs["fast"]
     fh = FrameHandler(cam, cfg, shape, device=dev)
-    reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     fh.add_image(img0, 0.0)
     i, i_boot, n_calls = 0, None, 1
@@ -665,15 +1150,15 @@ def main() -> int:
             break
     boot_s = time.perf_counter() - t0
     assert i_boot is not None, "the bootstrap never reached the default stage"
-    boot_launches = read_counts()
+    boot_launches = _read_counts()
     state = fused.state_from_handler(fh)
-    reset_counts()
+    _reset_counts()
     b_outs = []
     for j in range(i_boot + 1, N_FRAMES):
         state, out = fused.vo_step(state, imgs[j - 1], cam, cfg, ncx, ncy,
                                    shape)
         b_outs.append(out)
-    track_launches = read_counts()
+    track_launches = _read_counts()
     est = torch.stack([o.t_wc for o in b_outs]).cpu().numpy()
     b_failed = [i_boot + 1 + q for q, o in enumerate(b_outs)
                 if bool(o.failed)]
@@ -703,9 +1188,10 @@ def main() -> int:
     assert bootstrap["ate_median_mm"] <= BOOT_ATE_LIMIT_MM, bootstrap
 
     # --- 10. relocalization, relocalize_frame_at_pose, global BA -----------
+    phase(10)
     h = _snapshot(h_snaps[RELOC_FROM])
     black = torch.zeros(shape, device=dev)
-    reset_counts()
+    _reset_counts()
     r1 = h.add_image(black, 0.0)
     assert r1["result"] == "failure" and h.stage == "relocalizing", r1
     r2 = h.add_image(imgs[RELOC_FROM], 0.0)
@@ -719,7 +1205,7 @@ def main() -> int:
     at_pose_err = float(np.linalg.norm(
         h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM + 1]))
     assert at_pose and h.stage == "default"
-    reloc_launches = read_counts()
+    reloc_launches = _read_counts()
     R_before = h.map.kf.R.clone()
     h.global_ba()
     moved = float(torch.abs(h.map.kf.R - R_before).max())
@@ -739,6 +1225,7 @@ def main() -> int:
     assert reloc_err < 0.01 and at_pose_err < 0.01
 
     # --- 11. FrameHandler on the CPU over the replay's frames --------------
+    phase(11)
     cpu_fh = handler_from_numpy(handler_to_numpy(h_snaps[s]), cam,
                                 cfgs["fast"], shape, device="cpu")
     del h_snaps
@@ -759,7 +1246,92 @@ def main() -> int:
     assert any(kf_cpu) and kf_cpu == kf_card, (kf_cpu, kf_card)
     assert h_dpos <= CPU_TOL_M, h_dpos
 
-    # --- 12. the lines -------------------------------------------------------
+    # --- 13-17 write their files under build/chip_smoke/ -------------------
+    work = root / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    decoders = {"native_png": native_loader.has_png(),
+                "PIL": importlib.util.find_spec("PIL") is not None,
+                "yaml": importlib.util.find_spec("yaml") is not None}
+    print(f"# image decoders on this machine: {decoders}", flush=True)
+    assert decoders["native_png"] or decoders["PIL"], \
+        "no PNG decoder: the blender layout cannot be read"
+
+    # --- 13. FrameHandler with the ATAN camera, from ground-truth depth ----
+    phase(13)
+    (work / "camera_atan.yaml").write_text(ATAN_YAML)
+    atan = load_camera_yaml(str(work / "camera_atan.yaml"))
+    assert isinstance(atan, ATANCamera), atan
+    handler_atan, atan_pos, atan_snaps, atan_frames = _camera_run(
+        scene, cfgs["fast"], atan, "ATAN", len(imgs), ATAN_LIMITS_MM)
+
+    # --- 14. FrameHandler with the Omni camera of tests/test_cameras.py ----
+    phase(14)
+    poly, inv_poly = omni_calibration()
+    omni = OmniCamera.make(shape[1], shape[0], poly, inv_poly,
+                           shape[1] / 2.0, shape[0] / 2.0)
+    handler_omni, omni_pos, _, omni_frames = _camera_run(
+        scene, cfgs["fast"], omni, "Omni", OMNI_FRAMES, OMNI_LIMITS_MM)
+    handler_omni["cpu"] = _cpu_rerun(scene, cfgs["fast"], omni, omni_frames,
+                                     omni_pos, OMNI_LIMITS_MM, "Omni")
+    del omni_frames
+
+    # --- 15. the offline driver, blender protocol, as a subprocess --------
+    phase(15)
+    t_all, q_all, u8 = _bench_files(ds)
+    driver_blender = _blender_phase(root, work, ds, t_all, q_all, u8)
+
+    # --- 16. the offline driver, EuRoC layout, PGM images, bootstrap ------
+    phase(16)
+    driver_euroc = _euroc_phase(root, work, shape, t_all, q_all, u8)
+
+    # --- 17. checkpoints ------------------------------------------------------
+    phase(17)
+    def resume(path, device):
+        fh = FrameHandler(atan, cfgs["fast"], shape, device=device)
+        checkpoint.load_handler(str(path), fh)
+        return fh
+
+    def track_on(fh, device):
+        """CKPT_FRAMES frames after CKPT_AT; max |t_wc - the uninterrupted
+        ATAN run's|."""
+        d = 0.0
+        for j in range(CKPT_AT + 1, CKPT_AT + CKPT_FRAMES + 1):
+            info = fh.add_image(atan_frames[j - 1].to(device), j / 50.0)
+            assert info["result"] != "failure", j
+            d = max(d, float(np.abs(fh.last_frame.T_f_w.inverse().t.cpu()
+                                    .numpy() - atan_pos[j - 1]).max()))
+        return d
+
+    checkpoint.save_handler(str(work / "card.npz"), atan_snaps[CKPT_AT])
+    _reset_counts()
+    dt_card = track_on(resume(work / "card.npz", dev), dev)
+    ckpt_launches = _read_counts()
+    # the port's CPU handler, from the card's state CPU_FRAMES frames
+    # before, tracks to CKPT_AT on the CPU and saves there
+    cpu_h = handler_from_numpy(handler_to_numpy(
+        atan_snaps[CKPT_AT - CPU_FRAMES]), atan, cfgs["fast"], shape,
+        device="cpu")
+    for j in range(CKPT_AT - CPU_FRAMES + 1, CKPT_AT + 1):
+        assert cpu_h.add_image(atan_frames[j - 1].cpu(), j / 50.0)[
+            "result"] != "failure", j
+    checkpoint.save_handler(str(work / "cpu.npz"), cpu_h)
+    dt_cpu = track_on(resume(work / "cpu.npz", dev), dev)
+    ckpt = {"at_frame": CKPT_AT, "frames": CKPT_FRAMES,
+            "card_checkpoint_max_dt_m": dt_card,
+            "cpu_checkpoint_max_dt_m": dt_cpu, "launches": ckpt_launches,
+            "bytes": (work / "card.npz").stat().st_size}
+    print(f"# checkpoint of the ATAN handler at frame {CKPT_AT}: resumed on "
+          f"the card, max |dt_wc| {dt_card:.3e} m over the next {CKPT_FRAMES}"
+          f" frames (tol {CKPT_TOL_M}); the CPU handler's checkpoint resumed "
+          f"on the card {dt_cpu:.3e} m (tol {CPU_TOL_M}); "
+          f"{ckpt['bytes']} bytes", flush=True)
+    assert dt_card <= CKPT_TOL_M, dt_card
+    assert dt_cpu <= CPU_TOL_M, dt_cpu
+    shutil.rmtree(work)
+
+    # --- 18. the lines -------------------------------------------------------
+    phase(18)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
              "accurate": (accurate["launches"], accurate["frames"]),
@@ -768,12 +1340,25 @@ def main() -> int:
                                   handler_acc["frames"]),
              "bootstrap_handler": (boot_launches, n_calls),
              "bootstrap_vo_step": (track_launches, len(b_outs)),
-             "relocalization": (reloc_launches, 3)}
-    for name in ("tile_gather", "sparse_align"):
-        for path, (counts, _) in paths.items():
-            # the bootstrap's two stages before tracking align nothing
-            if (name, path) != ("sparse_align", "bootstrap_handler"):
-                assert counts[name] > 0, (name, path)
+             "relocalization": (reloc_launches, 3),
+             "handler_atan": (handler_atan["launches"],
+                              handler_atan["frames"]),
+             "handler_omni": (handler_omni["launches"],
+                              handler_omni["frames"]),
+             "driver_blender": (driver_blender["launches"],
+                                driver_blender["images"]),
+             "driver_euroc": (driver_euroc["launches"],
+                              driver_euroc["images"]),
+             "checkpoint_atan": (ckpt_launches, CKPT_FRAMES)}
+    # the reference runs K2 for pinhole cameras only (pallas_align.py:53):
+    # the ATAN and Omni paths align with the plain loop; the bootstrap's
+    # two stages before tracking align nothing
+    no_k2 = {"bootstrap_handler", "handler_atan", "handler_omni",
+             "checkpoint_atan"}
+    for path, (counts, _) in paths.items():
+        assert counts["tile_gather"] > 0, ("tile_gather", path)
+        assert (counts["sparse_align"] == 0) == (path in no_k2), \
+            ("sparse_align", path, counts)
 
     def by_path(name):
         return ({p: c[name] for p, (c, _) in paths.items()},
@@ -826,6 +1411,10 @@ def main() -> int:
                                        "max_dt_m": h_dpos,
                                        "cpu_ms_per_frame":
                                            h_cpu_wall / CPU_FRAMES * 1e3},
+               "handler_atan": handler_atan, "handler_omni": handler_omni,
+               "driver_blender": driver_blender, "driver_euroc": driver_euroc,
+               "checkpoint": ckpt,
+               "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     print("# summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -7,15 +7,23 @@ hold this one against.  This package imports ``torch`` and numpy only.
 
 Layout
 ------
-- ``geometry``  SE3, cameras, triangulation, small closed-form solves
+- ``geometry``  SE3, cameras (pinhole, ATAN, Omni), triangulation, small
+                closed-form solves
 - ``ops``       pyramids, tile gather (CUDA kernel K1), sparse image
                 alignment (CUDA kernel K2), feature alignment, matcher,
                 pose and structure refinement, detector, KLT, homography
 - ``core``      map pools, reprojector, depth filter, bundle adjustment,
-                the fused tracking step, the two-view bootstrap and the
-                host pipeline (``core.pipeline.FrameHandler``)
-- ``analysis``  trajectory error (ATE)
-- ``utils``     synthetic dataset renderer
+                the fused tracking step, the two-view bootstrap, the
+                host pipeline (``core.pipeline.FrameHandler``),
+                checkpoints and map checks
+- ``io``        camera YAMLs, dataset readers, trajectories, traces, PLY,
+                experiment YAMLs
+- ``native``    the C++ image loader and prefetch pool, built with g++ on
+                first use
+- ``analysis``  trajectory errors (ATE, RPE) and depth errors
+- ``tools``     the offline benchmark driver
+- ``utils``     synthetic scene renderers
+- ``viz``       per-frame records and overlays
 - ``csrc``      the CUDA sources, built with nvcc on first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,17 +1,33 @@
 """Absolute trajectory error (ATE) with Umeyama alignment.
 
-A copy of ``align_umeyama`` and ``ate_rmse`` from
-``rpg_svo_tpu/analysis/ate.py`` (the TUM benchmark tool the reference
-vendors, svo_analysis/src/svo_analysis/tum_benchmark_tools/
+A copy of ``rpg_svo_tpu/analysis/ate.py`` (the TUM benchmark tool the
+reference vendors, svo_analysis/src/svo_analysis/tum_benchmark_tools/
 evaluate_ate.py), so that the port imports nothing of the JAX package:
-align the estimated trajectory to ground truth with a closed-form
-similarity (with scale for a monocular map) and report the translational
-error.  numpy only.
+associate timestamps, align the estimated trajectory to ground truth with
+a closed-form similarity (with scale for a monocular map) and report the
+translational error.  numpy only.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+
+def associate(ts_a: np.ndarray, ts_b: np.ndarray,
+              max_dt: float = 0.02) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy nearest-timestamp association (tum associate.py semantics).
+    Returns index arrays (ia, ib)."""
+    ia, ib = [], []
+    used_b = set()
+    for i in np.argsort(ts_a):
+        j = int(np.argmin(np.abs(ts_b - ts_a[i])))
+        if abs(ts_b[j] - ts_a[i]) <= max_dt and j not in used_b:
+            ia.append(i)
+            ib.append(j)
+            used_b.add(j)
+    return np.asarray(ia, dtype=int), np.asarray(ib, dtype=int)
 
 
 def align_umeyama(model: np.ndarray, data: np.ndarray,

@@ -117,7 +117,64 @@ class SE3(NamedTuple):
     def rotate(self, p: torch.Tensor) -> torch.Tensor:
         return _mv3(self.R, p)
 
+    def adjoint(self) -> torch.Tensor:
+        """Adjoint matrix (..., 6, 6) in (v, w) twist ordering."""
+        tR = _mm3(_hat(self.t), self.R)
+        top = torch.cat([self.R, tR], dim=-1)
+        bot = torch.cat([torch.zeros_like(self.R), self.R], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+
     def where(self, cond: torch.Tensor, other: "SE3") -> "SE3":
         """Elementwise select: self where cond, else other (scalar cond)."""
         return SE3(torch.where(cond, self.R, other.R),
                    torch.where(cond, self.t, other.t))
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of w (..., 3) -> (..., 3, 3)."""
+    return _hat(w)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (x, y, z, w) -> rotation matrix (..., 3, 3)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / torch.clamp(n, min=1e-12),
+                    torch.zeros_like(n))
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (x, y, z, w), branch-free: the
+    four candidate constructions, the one with the largest pivot kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12)) * 0.5
+    qw0 = half_sqrt(1.0 + tr)
+    q0 = torch.stack([(m21 - m12), (m02 - m20), (m10 - m01),
+                      4.0 * qw0 * qw0], dim=-1) / (4.0 * qw0[..., None])
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([4.0 * qx1 * qx1, (m01 + m10), (m02 + m20),
+                      (m21 - m12)], dim=-1) / (4.0 * qx1[..., None])
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10), 4.0 * qy2 * qy2, (m12 + m21),
+                      (m02 - m20)], dim=-1) / (4.0 * qy2[..., None])
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20), (m12 + m21), 4.0 * qz3 * qz3,
+                      (m10 - m01)], dim=-1) / (4.0 * qz3[..., None])
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, idx[..., None, None].expand(
+        *idx.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

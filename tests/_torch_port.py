@@ -241,9 +241,222 @@ def jax_reference(n_frames: int = 441, timed_from: int = 41,
     return out
 
 
+def jax_camera(model: str):
+    """The JAX package's ATAN camera (from chip_smoke.ATAN_YAML, through its
+    load_camera_yaml) or Omni camera (chip_smoke.omni_calibration)."""
+    import tempfile
+
+    import chip_smoke
+    from rpg_svo_tpu.geometry.cameras import OmniCamera
+    from rpg_svo_tpu.io.camera_loader import load_camera_yaml
+    if model == "omni":
+        poly, inv = chip_smoke.omni_calibration()
+        return OmniCamera.make(752, 480, poly, inv, 376.0, 240.0)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/camera_atan.yaml"
+        with open(path, "w") as f:
+            f.write(chip_smoke.ATAN_YAML)
+        return load_camera_yaml(path)
+
+
+def jax_camera_reference(model: str, n_frames: int = 441,
+                         timed_from: int = 41) -> dict:
+    """The JAX FrameHandler (``bench_cfg("fast")``) from ground-truth depth
+    on the bench scene rendered through the ATAN or Omni camera at 752x480,
+    frames 1..n-1: median and max translation error over frames
+    timed_from..n-1 (over all of them where n <= timed_from), failed
+    frames, keyframes, and the first frame that failed."""
+    import dataclasses
+
+    import jax
+    from rpg_svo_tpu.config import Config as JConfig
+    from rpg_svo_tpu.core.pipeline import FrameHandler
+    from rpg_svo_tpu.utils.synthetic import SyntheticDataset, render_frame
+    from rpg_svo_tpu_torch.config import bench_cfg
+    cfg = JConfig(**dataclasses.asdict(bench_cfg("fast")))
+    cam = jax_camera(model)
+    ds = SyntheticDataset(n_frames=441, trajectory="circle", radius=0.25,
+                          revolutions=0.5)
+    render = jax.jit(lambda T: render_frame(cam, ds.tex, T, ds.shape))
+    gt = np.stack([np.asarray(p.t) for p in ds.poses])
+    fh = FrameHandler(cam, cfg)
+    img0, depth0 = render(ds.poses[0])
+    fh.set_first_frame_with_depth(img0, ds.poses[0].inverse(), depth0)
+    pos, failed, kfs = [], [], []
+    for i in range(1, n_frames):
+        info = fh.add_image(render(ds.poses[i])[0], i / 50.0)
+        pos.append(np.asarray(fh.last_frame.T_f_w.inverse().t))
+        failed += [i] if info["result"] == "failure" else []
+        kfs += [i] if info.get("is_keyframe") else []
+    terr = np.linalg.norm(np.stack(pos) - gt[1:n_frames], axis=-1)
+    win = terr[timed_from - 1:] if n_frames > timed_from else terr
+    return {"camera": model, "frames": [1, n_frames - 1],
+            "window": [timed_from if n_frames > timed_from else 1,
+                       n_frames - 1],
+            "median_terr_mm": float(np.median(win)) * 1e3,
+            "max_terr_mm": float(win.max()) * 1e3,
+            "failed": failed, "keyframes": kfs,
+            "first_failure": failed[0] if failed else None}
+
+
+def omni_split(n_frames: int = 201, timed_from: int = 41,
+               split_m: float = 1e-4, noise: float = 1e-3) -> dict:
+    """Where the JAX and the port's FrameHandler (``bench_cfg("fast")``,
+    ground-truth depth start) part on the Omni-rendered bench scene, both
+    fed the JAX renderer's images, and where each parts from itself when
+    those images carry N(0, noise) gray levels of added noise (seed 1):
+    the first frame more than split_m apart, the largest gap (mm), and each
+    run's median and max translation error over frames timed_from..n-1.
+    The port runs on the CPU."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import chip_smoke
+    from rpg_svo_tpu.config import Config as JConfig
+    from rpg_svo_tpu.core.pipeline import FrameHandler as JFrameHandler
+    from rpg_svo_tpu.utils.synthetic import SyntheticDataset, render_frame
+    from rpg_svo_tpu_torch.config import bench_cfg
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
+    from rpg_svo_tpu_torch.geometry.cameras import OmniCamera
+    from rpg_svo_tpu_torch.geometry.se3 import SE3
+    cfg = bench_cfg("fast")
+    jc = jax_camera("omni")
+    poly, inv = chip_smoke.omni_calibration()
+    tc = OmniCamera.make(752, 480, poly, inv, 376.0, 240.0)
+    ds = SyntheticDataset(n_frames=441, trajectory="circle", radius=0.25,
+                          revolutions=0.5)
+    render = jax.jit(lambda T: render_frame(jc, ds.tex, T, ds.shape))
+    frames = [render(ds.poses[i]) for i in range(n_frames)]
+    imgs = [np.array(f[0]) for f in frames]
+    depth0 = np.array(frames[0][1])
+    rng = np.random.default_rng(1)
+    noisy = [im + rng.normal(0, noise, im.shape).astype(np.float32)
+             for im in imgs]
+    gt = np.stack([np.asarray(p.t) for p in ds.poses])[1:n_frames]
+    T0 = ds.poses[0].inverse()
+
+    def run_jax(ims):
+        fh = JFrameHandler(jc, JConfig(**dataclasses.asdict(cfg)))
+        fh.set_first_frame_with_depth(jnp.asarray(ims[0]), T0,
+                                      jnp.asarray(depth0))
+        out = []
+        for i in range(1, n_frames):
+            fh.add_image(jnp.asarray(ims[i]), i / 50.0)
+            out.append(np.asarray(fh.last_frame.T_f_w.inverse().t))
+        return np.stack(out)
+
+    def run_port(ims):
+        fh = FrameHandler(tc, cfg, tuple(ds.shape), device="cpu")
+        fh.set_first_frame_with_depth(
+            torch.from_numpy(ims[0].copy()),
+            SE3(torch.from_numpy(np.array(T0.R)),
+                torch.from_numpy(np.array(T0.t))),
+            torch.from_numpy(depth0.copy()))
+        out = []
+        for i in range(1, n_frames):
+            fh.add_image(torch.from_numpy(ims[i].copy()), i / 50.0)
+            out.append(fh.last_frame.T_f_w.inverse().t.numpy())
+        return np.stack(out)
+
+    runs = {"jax": run_jax(imgs), "jax_noisy": run_jax(noisy),
+            "port": run_port(imgs), "port_noisy": run_port(noisy)}
+    out = {"frames": [1, n_frames - 1], "noise": noise, "split_m": split_m}
+    for a, b in (("jax", "port"), ("jax", "jax_noisy"),
+                 ("port", "port_noisy")):
+        gap = np.abs(runs[a] - runs[b]).max(axis=1)
+        out[f"{a}_vs_{b}"] = {
+            "first_split": next((i for i, g in enumerate(gap, 1)
+                                 if g > split_m), None),
+            "max_gap_mm": float(gap.max()) * 1e3}
+    for k, pos in runs.items():
+        terr = np.linalg.norm(pos - gt, axis=-1)[timed_from - 1:]
+        out[k] = {"median_terr_mm": float(np.median(terr)) * 1e3,
+                  "max_terr_mm": float(terr.max()) * 1e3}
+    return out
+
+
+def write_driver_trees(root) -> dict:
+    """The bench scene rendered by the port on the CPU and written as
+    chip_smoke.py's phases 15 and 16 write it: the blender tree (all 441
+    frames, depth maps of frame 0 and every 40th) and the EuRoC tree (every
+    5th frame as PGM).  Returns the two directories."""
+    import pathlib
+
+    import chip_smoke
+    from rpg_svo_tpu_torch.geometry.se3 import rot_to_quat
+    from rpg_svo_tpu_torch.utils.synthetic import SyntheticDataset
+    ds = SyntheticDataset(n_frames=441, trajectory="circle", radius=0.25,
+                          revolutions=0.5, device="cpu")
+    imgs, depths = [], {}
+    for i in range(len(ds)):
+        img, depth, _ = ds.frame(i)
+        imgs.append(chip_smoke.to_u8(img.numpy()))
+        if i % chip_smoke.DEPTH_EVERY == 0:
+            depths[i] = depth.numpy()
+    t = np.stack([p.t.numpy() for p in ds.poses])
+    q = np.stack([rot_to_quat(p.R).numpy() for p in ds.poses])
+    root = pathlib.Path(root)
+    chip_smoke.write_blender(root / "blender", imgs, t, q, depths)
+    sel = list(range(0, len(ds), chip_smoke.EUROC_STRIDE))
+    chip_smoke.write_euroc(root / "euroc", sel, [imgs[i] for i in sel], t, q)
+    return {"blender": str(root / "blender"), "euroc": str(root / "euroc")}
+
+
+def driver_args(dataset: str, path: str, out: str, **kw):
+    """The arguments chip_smoke.py's driver phases pass (the CLI's
+    defaults otherwise)."""
+    import argparse
+    import chip_smoke
+    base = dict(experiment=None, dataset_dir=None, dataset=dataset,
+                path=path, out=out, frames=441, preset="fast", grid_size=25,
+                cam=",".join(str(v) for v in chip_smoke.CAM_PINHOLE),
+                seed_first_frame=True, noise_sigma=0.0, noise_seed=0,
+                trace_depth=False, min_fts=0, ply=False, verbose=False)
+    if dataset == "blender":
+        base.update(noise_sigma=1.0, trace_depth=True, ply=True)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def jax_driver_reference(root) -> dict:
+    """The JAX driver (rpg_svo_tpu.tools.benchmark.run) on the trees of
+    write_driver_trees: the blender protocol and the EuRoC bootstrap.
+    The JAX driver's file-dataset iterator names jnp without importing it
+    (rpg_svo_tpu/tools/benchmark.py:316,321); the module gets it here."""
+    import pathlib
+
+    import jax.numpy as jnp
+    import rpg_svo_tpu.tools.benchmark as jb
+    jb.jnp = jnp
+    trees = write_driver_trees(root)
+    out = {}
+    for name in ("blender", "euroc"):
+        rep = jb.run(driver_args(name, trees[name],
+                                 str(pathlib.Path(root) / f"out_{name}")))
+        out[name] = {k: rep[k] for k in ("frames", "ate", "rpe_delta1",
+                                         "depth_error") if k in rep}
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
+    import tempfile
     sys.path.insert(0, str(__import__("pathlib").Path(__file__)
                            .resolve().parent.parent))
-    print(json.dumps(jax_reference()))
+    parts = sys.argv[1:] or ["handler", "atan", "omni", "driver",
+                             "omni_split"]
+    res = {}
+    if "handler" in parts:
+        res.update(jax_reference())
+    if "atan" in parts:
+        res["atan"] = jax_camera_reference("atan")
+    if "omni" in parts:
+        res["omni"] = jax_camera_reference("omni", n_frames=201)
+    if "omni_split" in parts:
+        res["omni_split"] = omni_split()
+    if "driver" in parts:
+        with tempfile.TemporaryDirectory() as d:
+            res["driver"] = jax_driver_reference(d)
+    print(json.dumps(res))
