@@ -51,17 +51,19 @@ one, or without the port beside it.  Phases, each fatal on failure:
 11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
    card's handler before them: equal results and keyframes, max |dt_wc|
    <= 1e-3 m;
-12. (phases 13-17 write their files under build/chip_smoke/, removed at
+12. (phases 13-18 write their files under build/chip_smoke/, removed at
    the end; they run one after another, as every phase does)
 13. ``FrameHandler`` (fast) with the ATAN camera of a ``camera_atan.yaml``
    the smoke writes and loads with ``load_camera_yaml``, on the bench
-   scene rendered through it, from ground-truth depth over frames 1-440:
-   median and max translation error over frames 41-440 within the JAX
-   handler's CPU figures +10% and +20%, no failed frame, no K2 launch
-   (the reference aligns non-pinhole cameras with the plain loop), host
-   syncs per frame from a replay, the sparse alignment's SVO_TRACE total;
+   scene rendered through it, from ground-truth depth over frames
+   1-ATAN_FRAMES (120: the checkpoint phase resumes at 100 and tracks 20
+   more): median and max translation error over frames 41-ATAN_FRAMES
+   within the JAX handler's CPU figures +10% and +20%, no failed frame,
+   no K2 launch (the reference aligns non-pinhole cameras with the plain
+   loop), host syncs per frame from a replay, the sparse alignment's
+   SVO_TRACE total;
 14. the same with the Omni camera of tests/test_cameras.py over frames
-   1-OMNI_FRAMES (limits over frames 41-OMNI_FRAMES), then the port's
+   1-OMNI_FRAMES (120; limits over frames 41-OMNI_FRAMES), then the port's
    handler on the CPU over the same frames from the same start: the first
    frame where the card and the CPU part by more than 1e-4 m, the largest
    gap, and the CPU run's errors within the same limits;
@@ -77,11 +79,26 @@ one, or without the port beside it.  Phases, each fatal on failure:
    RMSE within the JAX driver's CPU figure +10%; then the experiment YAML
    over the tree's first 60 images, pose for pose equal to that run
    (1e-6), whose run counts the host syncs;
-17. checkpoints: the ATAN handler saved at frame 200 and resumed in a
+17. checkpoints: the ATAN handler saved at frame 100 and resumed in a
    fresh handler on the card tracks the next 20 frames as the
    uninterrupted run (1e-6 m); the port's CPU handler saved at frame 200
    resumes on the card within 1e-3 m;
-18. one JSON line of kernel measurements (launches per frame on every
+18. the live entry point as a user starts it: ``python3 -c LIVE_STUB``
+   runs ``rpg_svo_tpu_torch.tools.live.main`` on its synthetic source
+   (the bench scene, 441 frames, add_image from frame 0 at stride 1) with
+   ``--traj-out``, its launches counted inside: the bootstrap frame equal
+   to the JAX tool's on the CPU, no failed frame after it, the Sim3 ATE
+   median of the TUM output within the JAX figure +10%, ms and launches
+   per frame;
+19. the public functions off the main path on frames 0 and 5, card
+   against the port on the CPU on the same inputs: feature alignment with
+   15 iterations (5 bilinear, 10 cubic) on the padded pyramid (K1), a
+   FlatPyramid and the raw image, find_match_direct, epipolar_match with
+   align_1d, extract_patches, BoundPyramidPool, image_gradients and
+   select_top_k (positions to 1e-3 px, discrete results equal); the
+   dashboard and the plots do not run here (no matplotlib on the card's
+   machine);
+20. one JSON line of kernel measurements (launches per frame on every
    path), the card's line, and the result.
 """
 
@@ -136,11 +153,13 @@ RELOC_FROM = 200               # the relocalization phase starts after it
 # the bench scene through the ATAN and Omni cameras: the JAX FrameHandler
 # from ground-truth depth on the CPU (tests/_torch_port.py
 # jax_camera_reference), median and max translation error over frames
-# 41-440 (ATAN: 1.98860 / 2.76365 mm) and 41-200 (Omni, which tracks frames
-# 1-200 with no failure: 0.92461 / 2.44030 mm), +10% and +20%
-ATAN_LIMITS_MM = (1.98860 * 1.1, 2.76365 * 1.2)
-OMNI_FRAMES = 200
-OMNI_LIMITS_MM = (0.92461 * 1.1, 2.44030 * 1.2)
+# 41-120 (ATAN: 0.73859 / 1.12855 mm; Omni: 0.65780 / 1.09444 mm), +10%
+# and +20%; both runs stop at frame 120 to keep the smoke near half its
+# time limit
+ATAN_FRAMES = 120
+ATAN_LIMITS_MM = (0.73859 * 1.1, 1.12855 * 1.2)
+OMNI_FRAMES = 120
+OMNI_LIMITS_MM = (0.65780 * 1.1, 1.09444 * 1.2)
 # the offline driver on the files phases 15 and 16 write: the JAX driver's
 # ATE RMSE on the CPU on the same files (tests/_torch_port.py
 # jax_driver_reference: 0.42304 mm over 441 poses of the blender protocol,
@@ -154,9 +173,21 @@ DRIVER_SYNC_FRAMES = 30        # the in-process run that counts host syncs
 DRIVER_FILES = ("benchmark.py:", "trajectory.py:")   # the driver's own syncs
 DRIVER_TIMEOUT_S = 600
 EXPERIMENT_IMAGES = 60         # the experiment YAML's run on the EuRoC tree
-CKPT_AT = 200                  # the ATAN handler is saved after this frame
-CKPT_FRAMES = 20
+CKPT_AT = 100                  # the ATAN handler is saved after this frame
+CKPT_FRAMES = 20               # ATAN_FRAMES = CKPT_AT + CKPT_FRAMES
 CKPT_TOL_M = 1e-6              # resumed on the card against uninterrupted
+# the live entry point on its synthetic source (the bench scene): the JAX
+# tool's CPU run (tests/_torch_port.py jax_live_reference) bootstraps at
+# frame 168 with no failure after it, Sim3 ATE median 0.18461 mm over the
+# 272 poses after the bootstrap; +10%
+LIVE_BOOT_FRAME = 168
+LIVE_ATE_LIMIT_MM = 0.18461 * 1.1
+LIVE_TIMEOUT_S = 400
+# the left-out functions, card against the port on the CPU: positions
+# (px), samples (gray levels) and geometry; discrete results exactly
+SURFACE_PX_TOL = 1e-3
+SURFACE_SAMPLE_TOL = 1e-3
+SURFACE_N_ITER = 15            # 5 bilinear iterations, then 10 cubic
 TRACE_NAMES = ("pyramid_creation", "sparse_img_align", "reproject_kfs",
                "reproject_candidates", "feature_align", "reproject",
                "pose_optimizer", "point_optimizer", "local_ba")
@@ -197,6 +228,42 @@ ATAN_YAML = ("cam_model: ATAN\ncam_width: 752\ncam_height: 480\n"
 CAM_PINHOLE = (315.5, 315.5, 376.0, 240.0)
 EUROC_STRIDE = 5               # the EuRoC tree holds every 5th bench frame
 DEPTH_EVERY = 40               # the blender tree's depth maps: every 40th
+
+
+# --- the live entry point (phase 19) ----------------------------------------
+# (tests/_torch_port.py runs the JAX tool on the same arguments)
+def live_args(traj_out) -> list:
+    """tools/live's arguments of phase 19: its synthetic source with
+    N_FRAMES frames is the bench scene (timestamps i / 50)."""
+    return ["--source", "synthetic", "--frames", str(N_FRAMES),
+            "--traj-out", str(traj_out)]
+
+
+def live_figures(stdout: str, tum_path, gt_t: np.ndarray) -> dict:
+    """The figures of a live run on the bench scene from its status lines
+    and TUM file: the frame whose status first shows the default stage
+    (the bootstrap), the frames after it without a pose (failures), and
+    the Sim3-aligned ATE over the poses after it against gt_t (N, 3)."""
+    import re
+
+    from rpg_svo_tpu_torch.analysis.ate import align_umeyama
+    stages = [(int(m.group(2)), m.group(1)) for m in
+              (re.match(r"^\[\s*(\S+)\] frame\s+(\d+)", ln)
+               for ln in stdout.splitlines()) if m]
+    boot = next((f for f, s in stages if s == "default"), None)
+    assert boot is not None, "the live run never reached the default stage"
+    rows = np.loadtxt(tum_path, ndmin=2)
+    idx = np.rint(rows[:, 0] * 50.0).astype(int)
+    after = idx > boot
+    failed = sorted(set(range(boot + 1, len(gt_t))) - set(idx[after]))
+    s, R, t = align_umeyama(rows[after, 1:4], gt_t[idx[after]])
+    err = np.linalg.norm((s * (R @ rows[after, 1:4].T)).T + t
+                         - gt_t[idx[after]], axis=-1)
+    return {"frames": len(stages), "bootstrap_frame": boot,
+            "failed_after_bootstrap": failed, "poses_after": int(after.sum()),
+            "ate_median_mm": float(np.median(err)) * 1e3,
+            "ate_rmse_mm": float(np.sqrt(np.mean(err ** 2))) * 1e3,
+            "scale": float(s)}
 
 
 def omni_calibration():
@@ -589,6 +656,26 @@ DRIVER_STUB = (
     "    'sparse_align': align_kernel.sparse_align_kernel.launches}))\n")
 
 
+# tools/live as a subprocess, as a user starts it, its launch counts read
+# inside it: set to 0 just before main() and printed just after
+LIVE_STUB = (
+    "import json\n"
+    "import sys\n"
+    "import time\n"
+    "import torch\n"
+    "from rpg_svo_tpu_torch.ops import align_kernel, tiles\n"
+    "from rpg_svo_tpu_torch.tools import live\n"
+    "tiles.tile_gather_kernel.launches = 0\n"
+    "align_kernel.sparse_align_kernel.launches = 0\n"
+    "t0 = time.perf_counter()\n"
+    "live.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print('# launches ' + json.dumps({\n"
+    "    'seconds': time.perf_counter() - t0,\n"
+    "    'tile_gather': tiles.tile_gather_kernel.launches,\n"
+    "    'sparse_align': align_kernel.sparse_align_kernel.launches}))\n")
+
+
 def _driver_syncs(torch, run, n_frames: int) -> dict:
     """Host syncs of a driver run (sync debug mode) per frame of the
     n_frames it is counted over: the driver's own (DRIVER_FILES), and all
@@ -739,6 +826,216 @@ def _euroc_phase(root: Path, work: Path, shape, t_all, q_all, u8) -> dict:
         and exp_dt <= CKPT_TOL_M, exp_dt
     return res
 
+
+
+def _live_phase(root: Path, work: Path, t_all: np.ndarray) -> dict:
+    """Phase 18: ``python3 -c LIVE_STUB`` with live_args, the synthetic
+    source of N_FRAMES bench frames: the bootstrap frame, no failure after
+    it, the Sim3 ATE median, launches and ms per frame."""
+    tum = work / "live_tum.txt"
+    proc = subprocess.run([sys.executable, "-c", LIVE_STUB,
+                           *live_args(tum)], cwd=root, capture_output=True,
+                          text=True, timeout=LIVE_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    counts = json.loads(next(x for x in proc.stdout.splitlines()
+                             if x.startswith("# launches "))[11:])
+    seconds = counts.pop("seconds")
+    fig = live_figures(proc.stdout, tum, t_all)
+    res = dict(fig, seconds=seconds, launches=counts,
+               ms_per_frame=seconds / fig["frames"] * 1e3,
+               launches_per_frame={k: v / fig["frames"]
+                                   for k, v in counts.items()})
+    (root / "chiprun_out" / "chip_smoke_live_stdout.txt").write_text(
+        proc.stdout)
+    print(f"# live, synthetic source: {fig['frames']} frames in "
+          f"{seconds:.1f} s ({res['ms_per_frame']:.1f} ms/frame); bootstrap "
+          f"at frame {fig['bootstrap_frame']} (JAX {LIVE_BOOT_FRAME}), "
+          f"failed after it {fig['failed_after_bootstrap']}; Sim3 ATE median "
+          f"{fig['ate_median_mm']:.4f} mm over {fig['poses_after']} poses "
+          f"(limit {LIVE_ATE_LIMIT_MM:.4f}), scale {fig['scale']:.4f}; "
+          f"launches {counts}, per frame {res['launches_per_frame']}",
+          flush=True)
+    assert fig["frames"] == N_FRAMES, fig["frames"]
+    assert fig["bootstrap_frame"] == LIVE_BOOT_FRAME, fig
+    assert not fig["failed_after_bootstrap"], fig
+    assert fig["ate_median_mm"] <= LIVE_ATE_LIMIT_MM, fig
+    assert counts["tile_gather"] > 0 and counts["sparse_align"] > 0, counts
+    return res
+
+
+def _surface_phase(ds, dev) -> dict:
+    """Phase 19: the public functions off the main path on frames 0 and 5
+    of the bench scene, on ``dev`` against the port on the CPU on the same
+    inputs: feature alignment with SURFACE_N_ITER iterations on the padded
+    pyramid (K1), a FlatPyramid and the raw image; find_match_direct;
+    epipolar_match with align_1d; extract_patches, BoundPyramidPool,
+    image_gradients and select_top_k.  Returns the launches of the kernel
+    paths (feature alignment on the padded pyramid, the epipolar match) and
+    the largest differences."""
+    import torch
+    from rpg_svo_tpu_torch.geometry.se3 import SE3
+    from rpg_svo_tpu_torch.ops import detector, feature_align, interp, matcher
+    from rpg_svo_tpu_torch.ops.pyramid import build_padded_pyramid
+    from rpg_svo_tpu_torch.ops.tiles import PaddedPyramid
+    cpu = torch.device("cpu")
+    img0, depth0, T0 = ds.frame(0)
+    img1, _, T1 = ds.frame(5)
+    pads = {dev: [build_padded_pyramid(im, 5) for im in (img0, img1)]}
+    pads[cpu] = [PaddedPyramid.from_stack(p.stack.cpu(), p.shapes)
+                 for p in pads[dev]]
+    rng = np.random.default_rng(19)
+    worst = {}
+
+    def agree(name, card, host, tol):
+        """card and CPU results equal (tol 0: exactly) or within tol."""
+        c, h = card.cpu().numpy(), host.numpy()
+        assert c.shape == h.shape and c.dtype == h.dtype, (name, c.shape)
+        if tol == 0:
+            assert np.array_equal(c, h), name
+            return
+        fin = np.isfinite(h)
+        assert np.array_equal(fin, np.isfinite(c)), name
+        d = float(np.abs(c[fin] - h[fin]).max()) if fin.any() else 0.0
+        worst[name] = max(worst.get(name, 0.0), d)
+        assert d <= tol, (name, d, tol)
+
+    def both(fn):
+        """fn(device) on the card (launches counted) and on the CPU."""
+        _reset_counts()
+        card = fn(dev)
+        counts = _read_counts()
+        return card, fn(cpu), counts
+
+    # feature alignment: mixed 1-D/2-D items on levels 0-2 (0 for the raw
+    # image), bordered patches cut at px, starts up to 2.5 px away
+    levels = pads[cpu][1].levels()
+
+    def align_inputs(n_levels, n=256):
+        lv = rng.integers(0, n_levels, n).astype(np.int32)
+        shp = np.asarray([tuple(l.shape) for l in levels])[lv]
+        px = rng.uniform([12, 12], shp[:, ::-1] - 12).astype(np.float32)
+        patches = torch.zeros((n, 100))
+        for l in range(n_levels):
+            sel = torch.from_numpy(lv == l)
+            patches[sel] = feature_align.extract_patch_with_border(
+                levels[l], torch.from_numpy(px)[sel])[0]
+        ang = rng.uniform(0, 2 * np.pi, n)
+        return {"patches": patches,
+                "start": torch.from_numpy(
+                    (px + rng.uniform(-2.5, 2.5, (n, 2))).astype(np.float32)),
+                "valid": torch.from_numpy(rng.random(n) > 0.1),
+                "is_1d": torch.from_numpy(rng.random(n) < 0.3),
+                "direction": torch.from_numpy(np.stack(
+                    [np.cos(ang), np.sin(ang)], -1).astype(np.float32)),
+                "level": torch.from_numpy(lv)}
+
+    def align(src, a, d):
+        t = {k: v.to(d) for k, v in a.items()}
+        img = {"padded": pads[d][1],
+               "flat": interp.FlatPyramid.from_levels(
+                   [l.to(d) for l in levels]),
+               "raw": levels[0].to(d)}[src]
+        return feature_align.align_features(
+            img, t["patches"], t["start"], t["valid"],
+            n_iter=SURFACE_N_ITER, level=None if src == "raw" else t["level"],
+            direction=t["direction"], is_1d=t["is_1d"])
+
+    launches = {}
+    for src in ("padded", "flat", "raw"):
+        a = align_inputs(1 if src == "raw" else 3)
+        (pc, cc), (ph, ch), counts = both(functools.partial(align, src, a))
+        if src == "padded":
+            launches["align_padded"] = counts
+        agree(f"align_{src}.converged", cc, ch, 0)
+        agree(f"align_{src}.px", pc, ph, SURFACE_PX_TOL)
+        assert ch.float().mean() > 0.5, src
+
+    # the matcher: frame 0's corners with ground-truth depth in frame 5
+    lv0 = [l.cpu() for l in pads[cpu][0].levels()]
+    ncx, ncy = detector.grid_dims(SHAPE[1], SHAPE[0], 25)
+    feats = detector.detect_features(lv0, torch.zeros(ncx * ncy,
+                                                      dtype=torch.bool), 25)
+    cam = ds.cam
+    Tcr = T1.inverse() * T0
+    Tcr = SE3(Tcr.R.cpu(), Tcr.t.cpu())
+    f = cam.cam2world(feats["px"])
+    d0 = depth0.cpu()
+    xi = feats["px"][:, 0].long().clamp(0, SHAPE[1] - 1)
+    yi = feats["px"][:, 1].long().clamp(0, SHAPE[0] - 1)
+    dep = d0[yi, xi]
+    px_gt = cam.world2cam(Tcr.apply(f * dep[:, None]))
+    valid = feats["valid"] & torch.isfinite(dep) \
+        & cam.is_in_frame(px_gt, boundary=10.0)
+    m = {"px": feats["px"], "f": f, "lv": feats["level"], "d": dep,
+         "init": px_gt + torch.tensor([2.0, -1.5]), "valid": valid,
+         "ftype": torch.from_numpy(
+             (rng.random(len(dep)) < 0.4).astype(np.int32))}
+    ang = rng.uniform(0, 2 * np.pi, len(dep))
+    m["grad"] = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)
+                                 .astype(np.float32))
+
+    def direct(d):
+        t = {k: v.to(d) for k, v in m.items()}
+        T_ = SE3(Tcr.R.to(d), Tcr.t.to(d))
+        return matcher.find_match_direct(
+            interp.FlatPyramid.from_levels([l.to(d) for l in levels]),
+            interp.FlatPyramid.from_levels([l.to(d) for l in lv0]), cam, T_,
+            t["px"], t["f"], t["lv"], t["d"], t["init"], t["valid"],
+            n_iter=SURFACE_N_ITER, ftr_type=t["ftype"], ftr_grad=t["grad"])
+
+    dc, dh, _ = both(direct)
+    for k in ("level_cur", "success"):
+        agree(f"find_match_direct.{k}", getattr(dc, k), getattr(dh, k), 0)
+    agree("find_match_direct.px_cur", dc.px_cur, dh.px_cur, SURFACE_PX_TOL)
+    assert int(dh.success.sum()) > 0.4 * int(valid.sum())
+
+    def epipolar(d):
+        t = {k: v.to(d) for k, v in m.items()}
+        T_ = SE3(Tcr.R.to(d), Tcr.t.to(d))
+        return matcher.epipolar_match(
+            pads[d][1], pads[d][0], cam, T_, t["px"], t["f"], t["lv"],
+            t["d"], 0.7 * t["d"], 1.4 * t["d"], t["valid"],
+            n_iter=SURFACE_N_ITER, ftr_type=t["ftype"], ftr_grad=t["grad"],
+            align_1d=True)
+
+    ec, eh, launches["epipolar_align_1d"] = both(epipolar)
+    for k in ("level_cur", "success", "scanned"):
+        agree(f"epipolar_match.{k}", getattr(ec, k), getattr(eh, k), 0)
+    ok = eh.success
+    assert int(ok.sum()) > len(ok) // 4
+    agree("epipolar_match.px_cur", ec.px_cur[ok.to(dev)], eh.px_cur[ok],
+          SURFACE_PX_TOL)
+
+    # samplers, gradients and the top-k selection
+    c = torch.from_numpy(rng.uniform([-6, -6], [SHAPE[1] + 6, SHAPE[0] + 6],
+                                     (512, 2)).astype(np.float32))
+    pc, ph = (interp.extract_patches(levels[0].to(d), c.to(d), 4, 1)
+              for d in (dev, cpu))
+    agree("extract_patches.valid", pc[1], ph[1], 0)
+    agree("extract_patches", pc[0], ph[0], SURFACE_SAMPLE_TOL)
+    pool = torch.stack([torch.cat([l.reshape(-1) for l in ls])
+                        for ls in (lv0, levels)])
+    shapes = [tuple(l.shape) for l in lv0]
+    idx = torch.from_numpy(rng.integers(-1, 3, 512).astype(np.int32))
+    lvl = torch.from_numpy(rng.integers(0, 5, 512).astype(np.int32))
+    xy = (c / torch.exp2(lvl.float())[:, None])[:, None, :] \
+        + torch.from_numpy(rng.uniform(-2, 2, (512, 9, 2))
+                           .astype(np.float32))
+    bc, bh = (interp.BoundPyramidPool(pool.to(d), shapes, idx.to(d))
+              .bilinear(lvl.to(d)[:, None], xy.to(d)) for d in (dev, cpu))
+    agree("BoundPyramidPool.valid", bc[1], bh[1], 0)
+    agree("BoundPyramidPool.bilinear", bc[0], bh[0], SURFACE_SAMPLE_TOL)
+    for k, (gc, gh) in enumerate(zip(interp.image_gradients(
+            levels[0].to(dev)), interp.image_gradients(levels[0]))):
+        agree(f"image_gradients.{'xy'[k]}", gc, gh, SURFACE_SAMPLE_TOL)
+    scores = torch.from_numpy(rng.integers(0, 8, 4096).astype(np.float32))
+    keep = torch.from_numpy(rng.random(4096) > 0.3)
+    agree("select_top_k", detector.select_top_k(scores.to(dev),
+                                                keep.to(dev), 300),
+          detector.select_top_k(scores, keep, 300), 0)
+    print(f"# left-out functions, card against CPU: largest differences "
+          f"{json.dumps(worst)}; launches {launches}", flush=True)
+    return {"max_abs_diff": worst, "launches": launches}
 
 def main() -> int:
     import torch
@@ -1246,7 +1543,7 @@ def main() -> int:
     assert any(kf_cpu) and kf_cpu == kf_card, (kf_cpu, kf_card)
     assert h_dpos <= CPU_TOL_M, h_dpos
 
-    # --- 13-17 write their files under build/chip_smoke/ -------------------
+    # --- 13-18 write their files under build/chip_smoke/ -------------------
     work = root / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1263,7 +1560,7 @@ def main() -> int:
     atan = load_camera_yaml(str(work / "camera_atan.yaml"))
     assert isinstance(atan, ATANCamera), atan
     handler_atan, atan_pos, atan_snaps, atan_frames = _camera_run(
-        scene, cfgs["fast"], atan, "ATAN", len(imgs), ATAN_LIMITS_MM)
+        scene, cfgs["fast"], atan, "ATAN", ATAN_FRAMES, ATAN_LIMITS_MM)
 
     # --- 14. FrameHandler with the Omni camera of tests/test_cameras.py ----
     phase(14)
@@ -1328,10 +1625,21 @@ def main() -> int:
           f"{ckpt['bytes']} bytes", flush=True)
     assert dt_card <= CKPT_TOL_M, dt_card
     assert dt_cpu <= CPU_TOL_M, dt_cpu
+
+    # --- 18. the live entry point, as a subprocess ---------------------------
+    phase(18)
+    live = _live_phase(root, work, t_all)
     shutil.rmtree(work)
 
-    # --- 18. the lines -------------------------------------------------------
-    phase(18)
+    # --- 19. the left-out functions, card against CPU ----------------------
+    phase(19)
+    surface = _surface_phase(ds, dev)
+    print("# not run on the card: tools/dashboard and the analysis plots "
+          "(the machine has no matplotlib; tests/test_torch_tools.py holds "
+          "them to the JAX package on the CPU)", flush=True)
+
+    # --- 20. the lines -------------------------------------------------------
+    phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
              "accurate": (accurate["launches"], accurate["frames"]),
@@ -1349,12 +1657,17 @@ def main() -> int:
                                 driver_blender["images"]),
              "driver_euroc": (driver_euroc["launches"],
                               driver_euroc["images"]),
-             "checkpoint_atan": (ckpt_launches, CKPT_FRAMES)}
+             "checkpoint_atan": (ckpt_launches, CKPT_FRAMES),
+             "live": (live["launches"], live["frames"]),
+             "surface_align_padded": (surface["launches"]["align_padded"], 1),
+             "surface_epipolar_align_1d":
+                 (surface["launches"]["epipolar_align_1d"], 1)}
     # the reference runs K2 for pinhole cameras only (pallas_align.py:53):
     # the ATAN and Omni paths align with the plain loop; the bootstrap's
     # two stages before tracking align nothing
     no_k2 = {"bootstrap_handler", "handler_atan", "handler_omni",
-             "checkpoint_atan"}
+             "checkpoint_atan", "surface_align_padded",
+             "surface_epipolar_align_1d"}
     for path, (counts, _) in paths.items():
         assert counts["tile_gather"] > 0, ("tile_gather", path)
         assert (counts["sparse_align"] == 0) == (path in no_k2), \
@@ -1413,7 +1726,7 @@ def main() -> int:
                                            h_cpu_wall / CPU_FRAMES * 1e3},
                "handler_atan": handler_atan, "handler_omni": handler_omni,
                "driver_blender": driver_blender, "driver_euroc": driver_euroc,
-               "checkpoint": ckpt,
+               "checkpoint": ckpt, "live": live, "surface": surface,
                "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     print("# summary " + json.dumps(summary))

@@ -20,8 +20,10 @@ Layout
                 experiment YAMLs
 - ``native``    the C++ image loader and prefetch pool, built with g++ on
                 first use
-- ``analysis``  trajectory errors (ATE, RPE) and depth errors
-- ``tools``     the offline benchmark driver
+- ``analysis``  trajectory errors (ATE, RPE), depth errors, timing,
+                comparisons, hand-eye calibration, ground-truth smoothing
+- ``tools``     the offline benchmark driver, the live entry point
+                (``tools.live``, the vo_node equivalent) and the dashboard
 - ``utils``     synthetic scene renderers
 - ``viz``       per-frame records and overlays
 - ``csrc``      the CUDA sources, built with nvcc on first use

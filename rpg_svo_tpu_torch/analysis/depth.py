@@ -3,8 +3,9 @@
 A copy of ``rpg_svo_tpu/analysis/depth.py`` (svo_analysis
 analyse_depth.py:24-55): summary statistics of per-feature depth errors
 (the reference's golden percentiles, svo/test/test_depth_filter.cpp:
-143-155) and the precision curve, the fraction of errors below a swept
-threshold.  numpy only.
+143-155), the precision curve, the fraction of errors below a swept
+threshold, and its plot.  numpy; matplotlib only inside
+``plot_precision``.
 """
 
 from __future__ import annotations
@@ -55,3 +56,20 @@ def load_depth_trace(path: str) -> np.ndarray:
             rows.extend(float(v) for v in (vals[1:] if len(vals) > 1
                                            else vals))
     return np.asarray(rows, dtype=np.float64)
+
+
+def plot_precision(errors: np.ndarray, out_pdf: str, unit: str = "m"):
+    """Write the precision-curve plot (matplotlib, Agg)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    th, frac = precision_curve(errors)
+    fig, ax = plt.subplots(figsize=(5, 3.2))
+    ax.plot(th, frac)
+    ax.set_xlabel(f"depth error threshold [{unit}]")
+    ax.set_ylabel("fraction below threshold")
+    ax.set_ylim(0, 1.02)
+    ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(out_pdf)
+    plt.close(fig)

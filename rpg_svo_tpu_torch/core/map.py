@@ -75,6 +75,10 @@ class PointStore(NamedTuple):
     def active(self) -> torch.Tensor:
         return self.ptype != TYPE_DELETED
 
+    @property
+    def n_obs(self) -> torch.Tensor:
+        return torch.sum(self.obs_valid, dim=-1, dtype=torch.int32)
+
 
 class SeedStore(NamedTuple):
     active: torch.Tensor

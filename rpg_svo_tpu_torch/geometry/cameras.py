@@ -57,6 +57,10 @@ class PinholeCamera(NamedTuple):
         cls = PinholeCameraIdeal if ideal else PinholeCamera
         return cls(*vals)
 
+    @property
+    def has_distortion(self) -> bool:
+        return True  # coefficients may be zero; the math is branch-free
+
     def _distort(self, xu: torch.Tensor) -> torch.Tensor:
         x, y = xu[..., 0], xu[..., 1]
         r2 = x * x + y * y
@@ -107,6 +111,10 @@ class PinholeCamera(NamedTuple):
 
 class PinholeCameraIdeal(PinholeCamera):
     """Distortion-free pinhole: _distort/_undistort are identities."""
+
+    @property
+    def has_distortion(self) -> bool:
+        return False
 
     def _distort(self, xu: torch.Tensor) -> torch.Tensor:
         return xu
@@ -307,3 +315,8 @@ def project2d(xyz: torch.Tensor) -> torch.Tensor:
     z = xyz[..., 2]
     zs = torch.where(torch.abs(z) < 1e-10, torch.full_like(z, 1e-10), z)
     return xyz[..., :2] / zs[..., None]
+
+
+def unproject2d(uv: torch.Tensor) -> torch.Tensor:
+    """Unit-plane 2D -> homogeneous 3D with z = 1."""
+    return torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)

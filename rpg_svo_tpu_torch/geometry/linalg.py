@@ -52,6 +52,10 @@ def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(inv3x3(A) * b[..., None, :], dim=-1)
 
 
+def solve2x2(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(inv2x2(A) * b[..., None, :], dim=-1)
+
+
 def cholesky6x6(A: torch.Tensor) -> torch.Tensor:
     """Unrolled lower Cholesky factor of one (6, 6) SPD matrix; an
     indefinite matrix yields NaN (no pivoting, no error raised)."""

@@ -124,6 +124,28 @@ class SE3(NamedTuple):
         bot = torch.cat([torch.zeros_like(self.R), self.R], dim=-1)
         return torch.cat([top, bot], dim=-2)
 
+    def matrix(self) -> torch.Tensor:
+        """Homogeneous 4x4 matrix (..., 4, 4)."""
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.t.dtype,
+                              device=self.t.device).expand(
+                                  *self.t.shape[:-1], 1, 4)
+        top = torch.cat([self.R, self.t[..., None]], dim=-1)
+        return torch.cat([top, bottom], dim=-2)
+
+    @staticmethod
+    def from_matrix(M: torch.Tensor) -> "SE3":
+        return SE3(M[..., :3, :3], M[..., :3, 3])
+
+    def normalize(self) -> "SE3":
+        """Re-orthonormalize R by Gram-Schmidt (drift control)."""
+        r0 = self.R[..., 0, :]
+        r0 = r0 / torch.linalg.vector_norm(r0, dim=-1, keepdim=True)
+        r1 = self.R[..., 1, :]
+        r1 = r1 - torch.sum(r0 * r1, dim=-1, keepdim=True) * r0
+        r1 = r1 / torch.linalg.vector_norm(r1, dim=-1, keepdim=True)
+        r2 = torch.linalg.cross(r0, r1, dim=-1)
+        return SE3(torch.stack([r0, r1, r2], dim=-2), self.t)
+
     def where(self, cond: torch.Tensor, other: "SE3") -> "SE3":
         """Elementwise select: self where cond, else other (scalar cond)."""
         return SE3(torch.where(cond, self.R, other.R),

@@ -31,6 +31,20 @@ def jacobian_xyz2uv(p_cam: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
+def jacobian_proj_point(p_cam: torch.Tensor,
+                        R_f_w: torch.Tensor) -> torch.Tensor:
+    """d(unit-plane projection)/d(world point) (..., 2, 3): the raw
+    projection Jacobian chained through R_f_w (Point::jacobian_xyz2uv
+    without its residual sign flip)."""
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
+    zi = _inv_z(z)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    Jproj = torch.stack([torch.stack([zi, zero, -x * zi2], dim=-1),
+                         torch.stack([zero, zi, -y * zi2], dim=-1)], dim=-2)
+    return torch.sum(Jproj[..., :, :, None] * R_f_w[..., None, :, :], dim=-2)
+
+
 def depth_from_triangulation(T_cur_ref: SE3, f_ref: torch.Tensor,
                              f_cur: torch.Tensor):
     """Depths (d_ref, d_cur, ok) of a ray pair by a 2x2 normal-equation
@@ -61,3 +75,13 @@ def triangulate_midpoint(T_w_ref: SE3, T_w_cur: SE3, f_ref: torch.Tensor,
     p_w = 0.5 * (T_w_ref.apply(f_ref * d_ref[..., None])
                  + T_w_cur.apply(f_cur * d_cur[..., None]))
     return p_w, ok & (d_ref > 0) & (d_cur > 0)
+
+
+def reprojection_error_unitplane(p_cam: torch.Tensor,
+                                 f_meas: torch.Tensor) -> torch.Tensor:
+    """Unit-plane residual (..., 2) between a camera-frame point and a
+    measured bearing: both projected to z = 1 and subtracted."""
+    def safe(z):
+        return torch.where(torch.abs(z) < 1e-10, torch.full_like(z, 1e-10), z)
+    return f_meas[..., :2] / safe(f_meas[..., 2:3]) \
+        - p_cam[..., :2] / safe(p_cam[..., 2:3])

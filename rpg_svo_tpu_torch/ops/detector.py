@@ -156,3 +156,14 @@ def detect_features(pyramid: Sequence[torch.Tensor], occupied: torch.Tensor,
             "score": torch.where(valid, best_score,
                                  torch.zeros_like(best_score)),
             "valid": valid}
+
+
+def select_top_k(scores: torch.Tensor, valid: torch.Tensor, k: int):
+    """Indices of the k best valid entries (padded with -1); among equal
+    scores the lower index comes first, as lax.top_k orders them."""
+    masked = torch.where(valid, scores, torch.full_like(scores,
+                                                        float("-inf")))
+    vals, idx = torch.sort(masked, descending=True, stable=True)
+    vals, idx = vals[:k], idx[:k]
+    return torch.where(torch.isfinite(vals), idx.to(torch.int32),
+                       torch.full_like(idx, -1, dtype=torch.int32))

@@ -1,16 +1,19 @@
-"""Bilinear image sampling and the flat per-item-level pyramid view.
+"""Bilinear image sampling and the flat per-item-level pyramid views.
 
 Port of ``rpg_svo_tpu/ops/interp.py``: batched bilinear/nearest sampling
-with validity masks, the static patch offset grid, and ``FlatPyramid``, a
-strided flat view of a padded stack where the pyramid level is a per-query
-tensor (flat index = level offset + y * stride + x).
+with validity masks, the static patch offset grid and patch extraction,
+``FlatPyramid``, a flat view of a pyramid where the pyramid level is a
+per-query tensor (flat index = level offset + y * stride + x),
+``BoundPyramidPool``, a (K, L) pool of packed pyramids sampled at a
+per-query pyramid index, and central-difference image gradients.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -49,6 +52,24 @@ def patch_grid(halfsize: int, border: int = 0, device="cpu") -> torch.Tensor:
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
 
 
+def extract_patches(img: torch.Tensor, centers: torch.Tensor,
+                    halfsize: int, border: int = 0):
+    """Bilinear patches around centers (N, 2) -> (N, P*P), valid (N,):
+    a patch is valid only if every sample lies inside the image."""
+    grid = patch_grid(halfsize, border, device=img.device)
+    vals, ok = bilinear(img, centers[:, None, :] + grid[None, :, :])
+    return vals, torch.all(ok, dim=-1)
+
+
+def _packed_table(shapes, device) -> torch.Tensor:
+    """(4, L) int64 [offset, width, height, row stride] of levels packed
+    back to back, each with its own width as row stride."""
+    offs = np.cumsum([0] + [h * w for h, w in shapes])[:-1]
+    tab = np.asarray([offs, [w for _, w in shapes], [h for h, _ in shapes],
+                      [w for _, w in shapes]], dtype=np.int64)
+    return torch.from_numpy(tab).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatPyramid:
     """Per-item-level sampler over a flat pyramid buffer.
@@ -57,6 +78,14 @@ class FlatPyramid:
     flat: torch.Tensor
     table: torch.Tensor
     shapes: Tuple[Tuple[int, int], ...]
+
+    @classmethod
+    def from_levels(cls, levels: Sequence[torch.Tensor]) -> "FlatPyramid":
+        """All levels concatenated into one packed flat buffer (the JAX
+        package's ``FlatPyramid(levels)``)."""
+        shapes = tuple((int(l.shape[0]), int(l.shape[1])) for l in levels)
+        return cls(torch.cat([l.reshape(-1) for l in levels]),
+                   _packed_table(shapes, levels[0].device), shapes)
 
     @classmethod
     def from_padded(cls, pad) -> "FlatPyramid":
@@ -95,3 +124,38 @@ class FlatPyramid:
             + torch.clamp(xi, zero, W - 1)
         vals = self.flat[idx]
         return torch.where(valid, vals, torch.full_like(vals, fill)), valid
+
+
+class BoundPyramidPool:
+    """A (K, L) pool of packed flat pyramids sharing one level layout,
+    bound to a per-query pyramid index ``idx`` (N,): item i samples
+    pyramid idx[i] (clamped; callers mask idx < 0).  Same
+    ``bilinear(level, xy)`` interface as FlatPyramid."""
+
+    def __init__(self, pool_flat: torch.Tensor, shapes, idx: torch.Tensor):
+        self.shapes = tuple((int(h), int(w)) for h, w in shapes)
+        self.table = _packed_table(self.shapes, pool_flat.device)
+        self.pool = pool_flat
+        self.idx = idx
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.shapes)
+
+    def bilinear(self, level: torch.Tensor, xy: torch.Tensor,
+                 fill: float = 0.0):
+        """xy (N, ..., 2); level broadcasts against xy's batch dims."""
+        lv = torch.clamp(level.to(torch.int64), 0, self.n_levels - 1)
+        off, W, H = self.table[0][lv], self.table[1][lv], self.table[2][lv]
+        k = torch.clamp(self.idx.to(torch.int64), 0, self.pool.shape[0] - 1)
+        k = k.reshape(k.shape + (1,) * (xy.dim() - k.dim() - 1))
+        return _bilinear_flat(self.pool.reshape(-1),
+                              k * self.pool.shape[1] + off, W, W, H, xy, fill)
+
+
+def image_gradients(img: torch.Tensor):
+    """Central-difference gradients (dx, dy), 0.5 * (I[+1] - I[-1]), same
+    shape; they wrap around at the borders, as the reference's roll."""
+    dx = 0.5 * (torch.roll(img, -1, dims=1) - torch.roll(img, 1, dims=1))
+    dy = 0.5 * (torch.roll(img, -1, dims=0) - torch.roll(img, 1, dims=0))
+    return dx, dy

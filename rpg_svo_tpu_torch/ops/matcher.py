@@ -29,11 +29,12 @@ from rpg_svo_tpu_torch.geometry.linalg import det2x2, inv2x2
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.geometry.triangulation import depth_from_triangulation
 from rpg_svo_tpu_torch.ops.feature_align import (
-    BORDERED, HALFPATCH, PATCH, align2d, align_features)
+    BORDERED, HALFPATCH, PATCH, align1d, align2d, align_features)
 from rpg_svo_tpu_torch.ops.patches import sample_tiles
 
 # static cap on epipolar scan steps (the reference caps at 1000)
 DEFAULT_MAX_STEPS = 128
+ZMSSD_THRESHOLD = 2000.0 * PATCH * PATCH
 
 FEATURE_CORNER = 0
 FEATURE_EDGELET = 1
@@ -274,12 +275,13 @@ def _strip_scan(cur_pyr, pxA, dir_lvl, search_level, n_steps, ref_rot,
 def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
                     ref_patch_border, ref_rot, ref_ok, valid,
                     max_steps: int = DEFAULT_MAX_STEPS, n_iter: int = 10,
-                    ftr_type=None, ftr_grad=None, short_steps: int = 0,
-                    long_k: int = 0,
+                    ftr_type=None, ftr_grad=None, align_1d: bool = False,
+                    short_steps: int = 0, long_k: int = 0,
                     scan_rows: int = PATCH) -> EpipolarMatch:
     """ZMSSD scan along the epipolar segment of the padded current pyramid,
-    align2D at the best window, and
-    triangulation (findEpipolarMatchDirect, matcher.cpp:179-321).
+    align2D at the best window (align1D along the epipolar direction with
+    ``align_1d``, matcher.h options_.align_1d), and triangulation
+    (findEpipolarMatchDirect, matcher.cpp:179-321).
 
     Two-tier scan (``short_steps``): segments of at most short_steps
     windows scan a short strip in place; longer ones are compacted into a
@@ -322,8 +324,12 @@ def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
         cosangle = torch.abs(torch.sum(grad_cur * dir_lvl, dim=-1))
         found = found & ~((ftr_type == FEATURE_EDGELET)
                           & (cosangle < EDGELET_MAX_ANGLE_COS))
-    px_ref_out, conv = align2d(cur_pad, ref_patch_border, best_px, found,
-                               n_iter, level=search_level)
+    if align_1d:
+        px_ref_out, conv = align1d(cur_pad, ref_patch_border, best_px,
+                                   dir_lvl, found, n_iter, level=search_level)
+    else:
+        px_ref_out, conv = align2d(cur_pad, ref_patch_border, best_px, found,
+                                   n_iter, level=search_level)
     px_ref_out = torch.where(conv[:, None], px_ref_out, best_px)
     px0 = px_ref_out * geom.scale[:, None]
     f_cur = cam.cam2world(px0)
@@ -336,8 +342,8 @@ def epipolar_match(cur_pad, ref_pad, cam, T_cur_ref: SE3, px_ref, f_ref,
                    level_ref, d_estimate, d_min, d_max, valid,
                    max_steps: int = DEFAULT_MAX_STEPS, n_iter: int = 10,
                    max_level: int = 4, ftr_type=None, ftr_grad=None,
-                   short_steps: int = 0, long_k: int = 0,
-                   scan_rows: int = PATCH) -> EpipolarMatch:
+                   align_1d: bool = False, short_steps: int = 0,
+                   long_k: int = 0, scan_rows: int = PATCH) -> EpipolarMatch:
     """Batched epipolar search with the ref patches warped out of the
     reference frame's padded pyramid (the fused step warps them out of the
     seeds' creation-time tiles and calls epipolar_geometry and
@@ -352,8 +358,8 @@ def epipolar_match(cur_pad, ref_pad, cam, T_cur_ref: SE3, px_ref, f_ref,
     return epipolar_search(cur_pad, cam, geom, T_cur_ref, f_ref, border, rot,
                            ok_b & ok_r, valid, max_steps=max_steps,
                            n_iter=n_iter, ftr_type=ftr_type,
-                           ftr_grad=ftr_grad, short_steps=short_steps,
-                           long_k=long_k,
+                           ftr_grad=ftr_grad, align_1d=align_1d,
+                           short_steps=short_steps, long_k=long_k,
                            scan_rows=scan_rows)
 
 
@@ -362,6 +368,24 @@ class DirectMatch(NamedTuple):
     level_cur: torch.Tensor   # (N,)
     success: torch.Tensor     # (N,)
     grad_cur: torch.Tensor    # (N, 2) warped unit gradient dir
+
+
+def find_match_direct(cur_pyr, ref_pyr, cam, T_cur_ref: SE3, px_ref, f_ref,
+                      level_ref, depth_ref, px_cur_init, valid,
+                      n_iter: int = 10, max_level: int = 4, ftr_type=None,
+                      ftr_grad=None) -> DirectMatch:
+    """Matcher::findMatchDirect (matcher.cpp:135-177): warp the reference
+    observation's patch out of ref_pyr (a FlatPyramid or BoundPyramidPool)
+    and align it at the projected location in cur_pyr (any source
+    ``align_features`` takes).  Edgelets refine 1-D along the warped
+    gradient direction (matcher.cpp:161-167), corners 2-D."""
+    A = warp_matrix_affine(cam, cam, px_ref, f_ref, depth_ref, T_cur_ref,
+                           level_ref)
+    search_level = best_search_level(A, level_ref, max_level)
+    patch_border, ref_ok = warp_affine_patches(A, ref_pyr, px_ref, level_ref,
+                                               search_level)
+    return _direct_align(cur_pyr, A, search_level, patch_border, ref_ok,
+                         px_cur_init, valid, n_iter, ftr_type, ftr_grad)
 
 
 def find_match_direct_tiles(cur_pad, ref_tiles, ref_xy0, cam,

@@ -62,3 +62,14 @@ def optimize_points(p_w, obs_R, obs_t, obs_f, obs_mask, point_valid,
         frozen = frozen | bad | conv
         p = p_next
     return p, chi2_old
+
+
+def observations_struct(n_points: int, max_obs: int, device="cpu"):
+    """Empty observation struct-of-arrays block for ``optimize_points``."""
+    shape = (n_points, max_obs)
+    return dict(
+        obs_R=torch.eye(3, device=device).expand(*shape, 3, 3).clone(),
+        obs_t=torch.zeros((*shape, 3), device=device),
+        obs_f=torch.tensor([0.0, 0.0, 1.0], device=device)
+        .expand(*shape, 3).clone(),
+        obs_mask=torch.zeros(shape, dtype=torch.bool, device=device))

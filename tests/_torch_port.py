@@ -439,6 +439,32 @@ def jax_driver_reference(root) -> dict:
     return out
 
 
+def jax_live_reference(root) -> dict:
+    """The JAX live tool (rpg_svo_tpu.tools.live.main) on the CPU with
+    chip_smoke.py's live arguments: its synthetic source is the bench
+    scene.  Returns chip_smoke.live_figures of its status lines and TUM
+    file, and its seconds."""
+    import contextlib
+    import io
+    import pathlib
+    import time
+
+    import chip_smoke
+    from rpg_svo_tpu.tools import live
+    from rpg_svo_tpu.utils.synthetic import SyntheticDataset
+    tum = pathlib.Path(root) / "live_tum.txt"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        live.main(chip_smoke.live_args(tum) + ["--cpu"])
+    seconds = time.perf_counter() - t0
+    ds = SyntheticDataset(n_frames=chip_smoke.N_FRAMES, trajectory="circle",
+                          radius=0.25, revolutions=0.5)
+    gt = np.stack([np.asarray(p.t) for p in ds.poses])
+    return dict(chip_smoke.live_figures(out.getvalue(), tum, gt),
+                seconds=seconds)
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -446,17 +472,20 @@ if __name__ == "__main__":
     sys.path.insert(0, str(__import__("pathlib").Path(__file__)
                            .resolve().parent.parent))
     parts = sys.argv[1:] or ["handler", "atan", "omni", "driver",
-                             "omni_split"]
+                             "omni_split", "live"]
     res = {}
     if "handler" in parts:
         res.update(jax_reference())
     if "atan" in parts:
-        res["atan"] = jax_camera_reference("atan")
+        res["atan"] = jax_camera_reference("atan", n_frames=121)
     if "omni" in parts:
-        res["omni"] = jax_camera_reference("omni", n_frames=201)
+        res["omni"] = jax_camera_reference("omni", n_frames=121)
     if "omni_split" in parts:
         res["omni_split"] = omni_split()
     if "driver" in parts:
         with tempfile.TemporaryDirectory() as d:
             res["driver"] = jax_driver_reference(d)
+    if "live" in parts:
+        with tempfile.TemporaryDirectory() as d:
+            res["live"] = jax_live_reference(d)
     print(json.dumps(res))
