@@ -98,8 +98,25 @@ one, or without the port beside it.  Phases, each fatal on failure:
    select_top_k (positions to 1e-3 px, discrete results equal); the
    dashboard and the plots do not run here (no matplotlib on the card's
    machine);
-20. one JSON line of kernel measurements (launches per frame on every
-   path), the card's line, and the result.
+20. (run last, after phases 21 and 22) one JSON line of kernel
+   measurements (launches per frame on every path, the batched launches
+   of phase 21), the card's line, and the result;
+21. camera streams in one step: ``parallel.streams.vmapped_vo_step``
+   (fast, 752x480) over 4 streams, stream b from phase 5's state after
+   frame 10 b, each tracking its next 20 frames: no failed frame, each
+   stream within 1e-3 m of its single-stream run with equal keyframes,
+   exactly 4 K1 and 1 K2 launches per batched step (the wrapper counts and
+   the profiler's), 0 host syncs; host ms per batched step (the median of
+   3 interleaved rounds of 10 steps), stream-frames per second, device ops
+   and launches at B = 1, 2, 4 and 8 beside one stream's step without vmap
+   timed in the same rounds; the batched K1 and K2 against their twins
+   per stream, with their device times;
+22. the mesh programs on NCCL: a subprocess starts a process group of one
+   rank on the card (``init_multihost``, ``make_mesh``) and holds
+   ``sharded_pose_optimize``, ``sharded_seed_update``,
+   ``distributed_ba_solve``, ``multistream_step`` and 3 frames of
+   ``vo_step_mesh`` to their single-device counterparts on the card
+   (1e-6); NCCL across GPUs is not run (one card).
 """
 
 from __future__ import annotations
@@ -215,6 +232,18 @@ K2_SOLVE_FLOPS = 300
 # device ops per slice-A step: the eager step with sparse alignment in
 # one launch and K1's clamp in the kernel issues about 4960
 MAX_SLICE_A_DEVICE_OPS = 5030
+# phase 21: B camera streams in one step (parallel/streams.vmapped_vo_step),
+# stream b from the fast run's state after frame STREAM_EVERY * b; each
+# tracks STREAM_FRAMES frames against its single-stream run of phase 5
+STREAM_EVERY = 10
+STREAMS_B = 4
+STREAM_FRAMES = 20
+STREAM_BS = (1, 2, 4, 8)       # the batch sizes timed
+STREAM_WARM = 3                # steps at each B before the timed ones
+STREAM_TIMED, STREAM_ROUNDS = 10, 3   # steps per timed block, rounds
+MESH_FRAMES = 3                # phase 22: vo_step_mesh frames
+MESH_TOL = 1e-6                # phase 22: mesh programs against one device
+MESH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -375,10 +404,10 @@ def _device_us(torch, fn, sym: str, reps: int = 20) -> float:
     calls of `fn`, from torch.profiler; each call launches one.  The
     profiler may drop an event or two of a run, and now and then every
     event of a run (both seen on the H100): such a run is profiled again,
-    at most three times in all."""
+    at most five times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    for _ in range(3):
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -392,6 +421,35 @@ def _device_us(torch, fn, sym: str, reps: int = 20) -> float:
             break
     assert reps // 2 <= len(us) <= reps, (sym, len(us))
     return statistics.median(us)
+
+
+def _graph_us(torch, fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time (us) per call of fn, one kernel launch each: fn captured
+    `reps` times in a CUDA graph, the graph replayed and timed with CUDA
+    events (median over `replays`); no host work between the launches.
+    Phase 21 times the batched kernels so: late in the smoke, after its
+    many profiles, the profiler may return no event for them at all."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / reps)
+    return statistics.median(times)
 
 
 def _device_profile(torch, fn):
@@ -1037,6 +1095,473 @@ def _surface_phase(ds, dev) -> dict:
           f"{json.dumps(worst)}; launches {launches}", flush=True)
     return {"max_abs_diff": worst, "launches": launches}
 
+def _kernel_counts(prof) -> dict:
+    """Launches of each kernel in a profile, by the profiler's own
+    events."""
+    import torch
+    ev = [e.name for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"tile_gather": sum("tile_gather_kernel" in n for n in ev),
+            "sparse_align": sum("sparse_align_kernel" in n for n in ev)}
+
+
+def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
+    """Phase 21: B camera streams in one step on the card.  Stream b starts
+    from the fast run's state after frame STREAM_EVERY * b.  First the
+    batched K1 and K2 against their twins per stream; then B = STREAMS_B
+    over STREAM_FRAMES frames against each stream's single-stream run
+    (phase 5), a batch of two holding the first keyframe, the ops taking
+    vmap's per-stream fallback, and host ms per batched step, device ops
+    and launches at every B of STREAM_BS."""
+    import torch
+    from rpg_svo_tpu_torch.core import fused
+    from rpg_svo_tpu_torch.core.map import TYPE_DELETED
+    from rpg_svo_tpu_torch.geometry.se3 import SE3
+    from rpg_svo_tpu_torch.ops import align_kernel, tiles
+    from rpg_svo_tpu_torch.ops.pyramid import build_padded_pyramid
+    from rpg_svo_tpu_torch.ops.sparse_align import sparse_img_align_plain
+    from rpg_svo_tpu_torch.parallel import streams
+    ncx, ncy = grid
+    t_phase = time.perf_counter()
+
+    def start(B):
+        return streams.stack_states([snaps[STREAM_EVERY * b]
+                                     for b in range(B)])
+
+    def frames(B, j):
+        """Stream b's image of batched step j: frame STREAM_EVERY*b+1+j."""
+        return torch.stack([imgs[STREAM_EVERY * b + j] for b in range(B)])
+
+    def step(st, B, j):
+        return streams.vmapped_vo_step(st, frames(B, j), cam, cfg, ncx, ncy,
+                                       shape)
+
+    def advance(st, c, j):
+        """The state after step j of config c: B streams batched, or one
+        stream (frame 1 + j) without vmap for "one"."""
+        if c == "one":
+            return fused.vo_step(st, imgs[j], cam, cfg, ncx, ncy, shape)[0]
+        return step(st, c, j)[0]
+
+    # --- the batched kernels against their twins, per stream, first: the
+    # profiler's kernel times are steadiest before the many profiles below
+    B = STREAMS_B
+    states = [snaps[STREAM_EVERY * b] for b in range(B)]
+    st = streams.stack_states(states)
+    shapes = states[0].pad.shapes
+    rng = np.random.default_rng(21)
+    n = 256
+    lv = rng.integers(0, 3, (B, n)).astype(np.int32)
+    W = np.asarray([w for _, w in shapes])[lv]
+    H = np.asarray([h for h, _ in shapes])[lv]
+    dev = st.R.device
+    req = [torch.from_numpy(a).to(dev) for a in (
+        lv, rng.integers(-20, W + 20).astype(np.int32),
+        rng.integers(-20, H + 20).astype(np.int32))]
+
+    def k1():
+        return torch.func.vmap(lambda s, l, x, y: tiles.gather_tiles(
+            tiles.PaddedPyramid(s, shapes), l, x, y, 17, 17))(
+                st.pad.stack, *req)
+    tk, xk, yk = k1()
+    for b in range(B):
+        tp, xp, yp = tiles.gather_tiles_plain(
+            states[b].pad, req[0][b], req[1][b], req[2][b], 17, 17)
+        assert torch.equal(tk[b], tp) and torch.equal(xk[b], xp) \
+            and torch.equal(yk[b], yp), f"batched K1 differs, stream {b}"
+    k1_us = _graph_us(torch, k1)
+
+    curs = torch.stack([build_padded_pyramid(imgs[STREAM_EVERY * b],
+                                             cfg.n_levels_total).stack
+                        for b in range(B)])
+    feats = []
+    for s_ in states:
+        pid = torch.clamp(s_.feat_point, 0).long()
+        depth = torch.linalg.vector_norm(
+            SE3(s_.R, s_.t).apply(s_.m.pt.pos[pid]), dim=-1)
+        ok = s_.feat_valid & (s_.feat_point >= 0) \
+            & (s_.m.pt.ptype[pid] != TYPE_DELETED)
+        feats.append((s_.feat_px, s_.feat_f, depth, ok))
+    feats = [torch.stack(x) for x in zip(*feats)]
+    lvl = (cfg.klt_max_level, cfg.klt_min_level, cfg.img_align_n_iter,
+           cfg.img_align_eps)
+    ident = SE3.identity(device=dev)
+
+    def one(ref, cur, px, f, d, v):
+        return align_kernel.sparse_align_kernel(
+            tiles.PaddedPyramid(ref, shapes), tiles.PaddedPyramid(cur, shapes),
+            cam, ident, px, f, d, v, *lvl)
+
+    def k2():
+        return torch.func.vmap(one)(st.pad.stack, curs, *feats)
+    Tk, nk, _, _, ik = k2()
+    k2_err = 0.0
+    for b in range(B):
+        rp = sparse_img_align_plain(
+            states[b].pad, tiles.PaddedPyramid(curs[b], shapes), cam, ident,
+            *[x[b] for x in feats], *lvl, gather=tiles.gather_tiles_plain)
+        dtb = float(torch.abs(Tk.t[b] - rp.T_cur_ref.t).max())
+        dR = float(torch.abs(Tk.R[b] - rp.T_cur_ref.R).max())
+        assert dtb < K2_TOL and dR < K2_TOL \
+            and int(nk[b]) == int(rp.n_tracked) \
+            and torch.equal(ik[b].cpu(), rp.iters.cpu()), \
+            f"batched K2 differs from its twin, stream {b}: {dtb} {dR}"
+        k2_err = max(k2_err, dtb, dR)
+    k2_us = _graph_us(torch, k2)
+    k2_us_1 = _graph_us(torch, lambda: one(
+        st.pad.stack[0], curs[0], *[x[0] for x in feats]))
+    print(f"# batched kernels, {B} streams: K1 17x17x{n} per stream "
+          f"bit-exact, device {k1_us:.2f} us per launch; K2 at N="
+          f"{feats[0].shape[1]} within {k2_err:.2e} of the twin per stream, "
+          f"equal counts and iterations, device {k2_us:.2f} us per launch "
+          f"(one stream: {k2_us_1:.2f} us); CUDA-graph replays",
+          flush=True)
+    # --- B streams over STREAM_FRAMES frames against their single runs ----
+    B = STREAMS_B
+    st = start(B)
+    _reset_counts()
+    outs = []
+    for j in range(STREAM_FRAMES):
+        st, o = step(st, B, j)
+        outs.append(o)
+    launches = _read_counts()
+    t_wc = torch.stack([o.t_wc for o in outs]).cpu().numpy()   # (T, B, 3)
+    kf = torch.stack([o.is_keyframe for o in outs]).cpu().numpy()
+    failed = torch.stack([o.failed for o in outs]).cpu().numpy()
+    dt, kf_equal, kf_frames = 0.0, True, {}
+    for b in range(B):
+        first = STREAM_EVERY * b
+        single = fast_outs[first:first + STREAM_FRAMES]
+        ref = np.stack([o.t_wc.cpu().numpy() for o in single])
+        ref_kf = [bool(o.is_keyframe) for o in single]
+        dt = max(dt, float(np.abs(t_wc[:, b] - ref).max()))
+        kf_equal &= ref_kf == [bool(x) for x in kf[:, b]]
+        kf_frames[b] = [first + 1 + j for j in range(STREAM_FRAMES)
+                        if kf[j, b]]
+    print(f"# streams: {B} streams x {STREAM_FRAMES} frames in one "
+          f"vmapped step each: max |dt_wc| against the single-stream runs "
+          f"{dt:.3e} m (tol {CPU_TOL_M}); keyframes equal: {kf_equal} "
+          f"{kf_frames}; failed {int(failed.sum())}; launches {launches}",
+          flush=True)
+    assert not failed.any(), "streams: a frame failed"
+    assert kf_equal and dt <= CPU_TOL_M, (dt, kf_frames)
+    assert launches == {"tile_gather": K1_PER_FRAME * STREAM_FRAMES,
+                        "sparse_align": STREAM_FRAMES}, launches
+
+    # --- a keyframe inside the batch: the streams from frames 70 and 80
+    # over the next STREAM_EVERY frames, the first keyframe (87) in one --
+    kb = [STREAM_EVERY * (max(STREAM_BS) - 1), STREAM_EVERY * max(STREAM_BS)]
+    sk = streams.stack_states([snaps[k] for k in kb])
+    kf_outs = []
+    for j in range(STREAM_EVERY):
+        sk, o = streams.vmapped_vo_step(
+            sk, torch.stack([imgs[k + j] for k in kb]), cam, cfg, ncx, ncy,
+            shape)
+        kf_outs.append(o)
+    kb_t = torch.stack([o.t_wc for o in kf_outs]).cpu().numpy()
+    kb_kf = torch.stack([o.is_keyframe for o in kf_outs]).cpu().numpy()
+    kb_dt = max(float(np.abs(kb_t[:, i] - np.stack(
+        [o.t_wc.cpu().numpy() for o in fast_outs[k:k + STREAM_EVERY]])).max())
+        for i, k in enumerate(kb))
+    kb_frames = {k: [k + 1 + j for j in range(STREAM_EVERY) if kb_kf[j, i]]
+                 for i, k in enumerate(kb)}
+    kb_want = {k: [k + 1 + j for j in range(STREAM_EVERY)
+                   if bool(fast_outs[k + j].is_keyframe)] for k in kb}
+    print(f"# streams: a batch of 2 from frames {kb} over {STREAM_EVERY} "
+          f"frames: keyframes {kb_frames} (single runs {kb_want}), max "
+          f"|dt_wc| {kb_dt:.3e} m", flush=True)
+    assert kb_frames == kb_want and any(kb_frames.values()), kb_frames
+    assert kb_dt <= CPU_TOL_M, kb_dt
+
+    # --- ops that take vmap's per-stream fallback (a loop over streams) ---
+    flag = torch._C._functorch._set_vmap_fallback_warning_enabled
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        flag(True)
+        try:
+            step(st, B, STREAM_FRAMES)
+        finally:
+            flag(False)
+    fallbacks = sorted({str(w.message).split("batching rule for ")[1]
+                        .split(".")[0] for w in caught
+                        if "batching rule for" in str(w.message)})
+    print(f"# streams: ops taking vmap's per-stream fallback: {fallbacks}",
+          flush=True)
+    assert not fallbacks, fallbacks
+
+    # --- host ms per step at each B and for one stream without vmap -------
+    # STREAM_ROUNDS rounds; each times STREAM_TIMED steps of every config in
+    # an order rotated by one per round, so the host clock's drift falls on
+    # every B alike; a config's figure is the median of its rounds
+    configs = ("one",) + tuple(STREAM_BS)
+    runs = {}
+    for c in configs:
+        st, j = snaps[0] if c == "one" else start(c), 0
+        for _ in range(STREAM_WARM):
+            st, j = advance(st, c, j), j + 1
+        runs[c] = [st, j]
+    rounds = {c: [] for c in configs}
+    launched = {c: {"tile_gather": 0, "sparse_align": 0} for c in configs}
+    for r in range(STREAM_ROUNDS):
+        for c in configs[r % len(configs):] + configs[:r % len(configs)]:
+            st, j = runs[c]
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(STREAM_TIMED):
+                st, j = advance(st, c, j), j + 1
+            torch.cuda.synchronize()
+            rounds[c].append((time.perf_counter() - t0) / STREAM_TIMED * 1e3)
+            runs[c] = [st, j]
+            counts = _read_counts()
+            assert counts == {"tile_gather": K1_PER_FRAME * STREAM_TIMED,
+                              "sparse_align": STREAM_TIMED}, (c, counts)
+            for k in launched[c]:
+                launched[c][k] += counts[k]
+    med = {c: float(np.median(rounds[c])) for c in configs}
+    single_ms = med["one"]
+    print(f"# one stream without vmap: {single_ms:.1f} host ms per step "
+          f"(median of rounds {[round(x, 1) for x in rounds['one']]})",
+          flush=True)
+    by_b = {}
+    for Bt in STREAM_BS:
+        sb, j = runs[Bt]
+        (_, _), syncs = _host_syncs(torch, lambda: step(sb, Bt, j))
+        ops, dms, kms, prof = _device_profile(torch, lambda: step(sb, Bt, j))
+        prof_counts = _kernel_counts(prof)
+        by_b[Bt] = {"host_ms_per_step": med[Bt],
+                    "host_ms_rounds": rounds[Bt],
+                    "stream_frames_per_s": Bt * 1e3 / med[Bt],
+                    "launches": launched[Bt],
+                    "steps": STREAM_TIMED * STREAM_ROUNDS,
+                    "profiled_launches_per_step": prof_counts,
+                    "device_ops_per_step": ops, "device_ms_per_step": dms,
+                    "kernel_device_ms": kms, "host_syncs_per_step":
+                        len(syncs)}
+        print(f"# streams B={Bt}: {med[Bt]:.1f} host ms per batched step "
+              f"(median of rounds {[round(x, 1) for x in rounds[Bt]]}), "
+              f"{by_b[Bt]['stream_frames_per_s']:.2f} stream-frames/s; "
+              f"{ops} device ops, {dms:.3f} ms device time per step; "
+              f"launches per step by the profiler {prof_counts}; "
+              f"{len(syncs)} host syncs"
+              + "".join(f"\n#   {x}" for x in syncs), flush=True)
+        assert prof_counts == {"tile_gather": K1_PER_FRAME,
+                               "sparse_align": 1}, (Bt, prof_counts)
+        assert not syncs, f"streams B={Bt}: the batched step waits on the card"
+
+    seconds = time.perf_counter() - t_phase
+    return {"B": B, "frames": STREAM_FRAMES, "max_dt_m": dt,
+            "keyframes": kf_frames, "launches": launches, "by_b": by_b,
+            "vmap_fallbacks": fallbacks,
+            "keyframe_batch": {"from_frames": kb, "keyframes": kb_frames,
+                               "max_dt_m": kb_dt},
+            "single_stream_host_ms": single_ms,
+            "single_stream_host_ms_rounds": rounds["one"],
+            "k1_batched": {"B": B, "shape": f"17x17x{n}",
+                           "device_us": k1_us, "max_abs_err": 0.0},
+            "k2_batched": {"B": B, "n_features": int(feats[0].shape[1]),
+                           "device_us": k2_us, "device_us_one_stream":
+                           k2_us_1, "max_abs_err": k2_err},
+            "seconds": seconds}
+
+
+def _mesh_world() -> int:
+    """Phase 22, run in its own process: a process group of one rank on
+    the card (NCCL) and each mesh program against its single-device
+    counterpart; prints one JSON line."""
+    import torch
+    from rpg_svo_tpu_torch.ba.schur import BAProblem, solve_ba
+    from rpg_svo_tpu_torch.config import bench_cfg
+    from rpg_svo_tpu_torch.core import fused
+    from rpg_svo_tpu_torch.core.depth_filter import seed_variance_update
+    from rpg_svo_tpu_torch.geometry.se3 import SE3
+    from rpg_svo_tpu_torch.ops.detector import grid_dims
+    from rpg_svo_tpu_torch.parallel import gspmd, multihost, sharded, streams
+    from rpg_svo_tpu_torch.parallel.ba import distributed_ba_solve
+    from rpg_svo_tpu_torch.parallel.fused_mesh import vo_step_mesh
+    from rpg_svo_tpu_torch.utils.synthetic import SyntheticDataset
+    import socket
+    import torch.distributed as dist
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    dev = multihost.init_multihost(f"127.0.0.1:{port}", 1, 0)
+    mesh = sharded.make_mesh()
+    res = {"device": str(dev), "backend": dist.get_backend(),
+           "mesh": list(mesh.mesh.shape), "world_size":
+               dist.get_world_size()}
+    rng = np.random.default_rng(22)
+    T = lambda a: torch.as_tensor(np.asarray(a)).to(dev)  # noqa: E731
+
+    def gap(a, b):
+        return float(torch.abs(a.float() - b.float()).max())
+
+    def counted(fn):
+        with gspmd.record_collectives() as log:
+            out = fn()
+        return out, log
+
+    # pose: the sharded loop against the same steps on one device
+    p_w = T((rng.uniform(-1, 1, (128, 3)) + [0, 0, 3]).astype(np.float32))
+    T_gt = SE3.exp(T(np.float32([0.2, -0.1, 0.05, 0.03, 0.02, -0.01])))
+    f = T_gt.apply(p_w)
+    f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+    level = T(rng.integers(0, 3, 128).astype(np.int32))
+    valid = T(rng.uniform(size=128) < 0.95)
+    T0 = SE3.identity(device=dev)
+    Tm, coll = counted(lambda: sharded.sharded_pose_optimize(
+        mesh, T0, *sharded.shard_on(mesh, (p_w, f, level, valid)),
+        n_iter=10))
+    Ts = T0
+    sic = 1.0 / torch.exp2(level.float())
+    for _ in range(10):
+        Ts, _ = sharded.distributed_pose_gn_step(Ts, p_w, f, sic, valid, 1.0,
+                                                 axis="")
+    res["pose"] = {"gap": max(gap(Tm.R, Ts.R), gap(Tm.t, Ts.t)),
+                   "terr_m": float(torch.linalg.vector_norm(Tm.t - T_gt.t)),
+                   "collectives": len(coll)}
+
+    # seeds: the sharded update against the plain update and masks
+    S = 256
+    mu = T(rng.uniform(0.3, 0.8, S).astype(np.float32))
+    args = (mu, T(np.where(rng.uniform(size=S) < 0.3, 2e-5, 0.05)
+                  .astype(np.float32)), T(np.full(S, 10.0, np.float32)),
+            T(np.full(S, 10.0, np.float32)), T(np.full(S, 2.0, np.float32)),
+            mu + T(rng.normal(0, 0.01, S).astype(np.float32)),
+            T(np.full(S, 1e-3, np.float32)), T(rng.uniform(size=S) < 0.9))
+    out, coll = counted(lambda: sharded.sharded_seed_update(
+        mesh, *sharded.shard_on(mesh, args)))
+    m2, s2, a2, b2 = seed_variance_update(*args[:7])
+    act = args[7]
+    want = [torch.where(act, x, y) for x, y in zip((m2, s2, a2, b2),
+                                                   args[:4])]
+    conv = act & (torch.sqrt(torch.clamp(want[1], min=0.0)) < args[4] / 200)
+    res["seeds"] = {"gap": max(gap(a, b) for a, b in zip(out[:4], want)),
+                    "n_conv": int(out[4]), "n_conv_single": int(conv.sum()),
+                    "collectives": len(coll)}
+
+    # BA: the sharded solve against the same solve without an axis, and
+    # against the single-device solve_ba
+    K, P, M = 4, 256, 4
+    p_gt = (rng.uniform(-1, 1, (P, 3)) + [0, 0, 4]).astype(np.float32)
+    Rs, ts = [], []
+    for i in range(K):
+        Ti = SE3.exp(T(np.float32([0.4 * i, 0.02 * i, 0, 0, 0.05 * i, 0])))
+        Rs.append(Ti.R)
+        ts.append(Ti.t)
+    R, t = torch.stack(Rs), torch.stack(ts)
+    oc = torch.arange(M, device=dev).repeat(P, 1)
+    pc = torch.einsum("pmij,pj->pmi", R[oc], T(p_gt)) + t[oc]
+    noise = rng.normal(0, 0.02, (K, 6)).astype(np.float32)
+    noise[:2] = 0
+    Tn = SE3.exp(T(noise)) * SE3(R, t)
+    var = T(np.array([False, False, True, True]))
+    prob = BAProblem(Tn.R, Tn.t, var,
+                     T(p_gt + rng.normal(0, 0.02, (P, 3)).astype(np.float32)),
+                     T(np.ones(P, bool)), oc.to(torch.int32),
+                     pc / torch.linalg.vector_norm(pc, dim=-1, keepdim=True),
+                     torch.zeros((P, M), dtype=torch.int32, device=dev),
+                     pc[..., 2] > 0.1)
+    pts = ("p_w", "p_valid", "obs_cam", "obs_f", "obs_level", "obs_mask")
+    local = prob._replace(**dict(zip(pts, sharded.shard_on(
+        mesh, tuple(getattr(prob, k) for k in pts)))))
+    (Rm, tm, pm, _), coll = counted(lambda: distributed_ba_solve(
+        mesh, local, n_iter=8))
+    R1, t1, p1, _ = distributed_ba_solve(mesh, prob, n_iter=8, axis="")
+    # the per-camera sums are index_add atomics on the card: the same
+    # solve run twice differs in the last bits
+    R2, t2, p2, _ = distributed_ba_solve(mesh, prob, n_iter=8, axis="")
+    ref = solve_ba(prob, n_iter=8, huber_width=0.01)
+    res["ba"] = {"gap": max(gap(Rm, R1), gap(tm, t1), gap(pm, p1)),
+                 "replay_gap": max(gap(R2, R1), gap(t2, t1), gap(p2, p1)),
+                 "scale": float(torch.abs(p1).max()),
+                 "gap_solve_ba_t": gap(tm, ref.t), "collectives": len(coll)}
+
+    # streams and the sharded step on the bench scene
+    cfg = bench_cfg("fast")
+    ds = SyntheticDataset(n_frames=N_FRAMES, shape=SHAPE, device=dev,
+                          **SCENE_KW)
+    ncx, ncy = grid_dims(SHAPE[1], SHAPE[0], cfg.grid_size)
+    img0, depth0, T00 = ds.frame(0)
+    s0 = fused.seed_first_frame_with_depth(img0, T00.inverse(), depth0,
+                                           ds.cam, cfg, img_shape=SHAPE,
+                                           device=dev)
+    img1 = ds.frame(1)[0]
+    (_, om), coll = counted(lambda: streams.multistream_step(
+        mesh, streams.stack_states([s0]), img1[None], ds.cam, cfg, ncx,
+        ncy, SHAPE))
+    _, o1 = fused.vo_step(s0, img1, ds.cam, cfg, ncx, ncy, SHAPE)
+    res["multistream"] = {"gap": gap(om.t_wc[0], o1.t_wc),
+                          "collectives": len(coll)}
+    sm, s1 = s0, s0
+    gaps, colls, kfs = [], [], []
+    for i in range(1, MESH_FRAMES + 1):
+        img = ds.frame(i)[0]
+        (sm, om), coll = counted(lambda: vo_step_mesh(
+            mesh, sm, img, ds.cam, cfg, ncx, ncy, SHAPE))
+        s1, o1 = fused.vo_step(s1, img, ds.cam, cfg, ncx, ncy, SHAPE)
+        gaps.append(max(gap(om.t_wc, o1.t_wc), gap(om.R_fw, o1.R_fw)))
+        colls.append(len(coll))
+        kfs.append([bool(om.is_keyframe), bool(o1.is_keyframe)])
+    res["vo_step_mesh"] = {"frames": MESH_FRAMES, "gap": max(gaps),
+                           "collectives_per_step": colls, "keyframes": kfs}
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    print("# mesh " + json.dumps(res), flush=True)
+    return 0
+
+
+def _mesh_phase(root: Path) -> dict:
+    """Phase 22: ``_mesh_world`` in a subprocess, as a user starts a rank,
+    and its figures checked here."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke._mesh_world())"],
+        cwd=root, capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    line = [x for x in out.stdout.splitlines() if x.startswith("# mesh ")]
+    assert out.returncode == 0 and line, \
+        f"mesh world failed: rc {out.returncode}\n{out.stdout[-3000:]}\n" \
+        f"{out.stderr[-3000:]}"
+    res = json.loads(line[-1][len("# mesh "):])
+    res["phase_seconds"] = time.perf_counter() - t0
+    print(f"# mesh programs on {res['backend']} (world size "
+          f"{res['world_size']}, mesh {res['mesh']}, {res['device']}): pose "
+          f"gap {res['pose']['gap']:.2e} ({res['pose']['collectives']} "
+          f"collectives), seeds {res['seeds']['gap']:.2e} (n_conv "
+          f"{res['seeds']['n_conv']}), BA {res['ba']['gap']:.2e} "
+          f"({res['ba']['collectives']} collectives; the same solve run "
+          f"twice {res['ba']['replay_gap']:.2e}, points up to "
+          f"{res['ba']['scale']:.2f} m; solve_ba "
+          f"{res['ba']['gap_solve_ba_t']:.2e}), multistream_step "
+          f"{res['multistream']['gap']:.2e} ("
+          f"{res['multistream']['collectives']} collectives), vo_step_mesh "
+          f"{res['vo_step_mesh']['gap']:.2e} over {MESH_FRAMES} frames "
+          f"(collectives per step "
+          f"{res['vo_step_mesh']['collectives_per_step']}); "
+          f"{res['phase_seconds']:.1f} s", flush=True)
+    print("# not run: NCCL across GPUs (this machine has one card; the mesh "
+          "programs ran across 4 gloo ranks on the CPU in "
+          "tests/test_torch_parallel.py)", flush=True)
+    assert res["backend"] == "nccl" and res["world_size"] == 1
+    for k in ("pose", "seeds", "multistream", "vo_step_mesh"):
+        assert res[k]["gap"] <= MESH_TOL, (k, res[k])
+    # BA's points lie ~5 m out: 1e-6 of their size (float32 rounding of the
+    # atomic sums, which part the single-device solve from itself too)
+    assert res["ba"]["gap"] <= MESH_TOL * max(1.0, res["ba"]["scale"]), \
+        res["ba"]
+    assert res["seeds"]["n_conv"] == res["seeds"]["n_conv_single"] > 0
+    assert res["pose"]["terr_m"] < 1e-3 and res["ba"]["gap_solve_ba_t"] < 5e-4
+    assert res["multistream"]["collectives"] == 0
+    assert min(res["vo_step_mesh"]["collectives_per_step"]) > 0
+    assert all(a == b for a, b in res["vo_step_mesh"]["keyframes"])
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1293,7 +1818,9 @@ def main() -> int:
         for i, img in enumerate(imgs[:n], start=1):
             state, out = fused.vo_step(state, img, cam, cfg, ncx, ncy, shape)
             outs.append(out)
-            if i % SNAP_EVERY == 0:
+            # every SNAP_EVERY frames, and the streams' starts of phase 21
+            if i % SNAP_EVERY == 0 or (preset == "fast" and i in
+                                       stream_starts):
                 snaps[i] = state
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1354,7 +1881,10 @@ def main() -> int:
                    "steps": steps}
         return summary, outs, snaps
 
+    stream_starts = range(0, STREAM_EVERY * (max(STREAM_BS) + 1),
+                          STREAM_EVERY)
     fast, fast_outs, fast_snaps = run_path("fast")
+    stream_snaps = {i: fast_snaps[i] for i in stream_starts}
     accurate, _, acc_snaps = run_path("accurate")
     del acc_snaps
 
@@ -1638,7 +2168,19 @@ def main() -> int:
           "(the machine has no matplotlib; tests/test_torch_tools.py holds "
           "them to the JAX package on the CPU)", flush=True)
 
-    # --- 20. the lines -------------------------------------------------------
+    # --- 21. B camera streams in one step ----------------------------------
+    phase(21)
+    streams_b = _streams_phase(stream_snaps, imgs, fast_outs, cam,
+                               cfgs["fast"], (ncx, ncy), shape)
+    del stream_snaps
+
+    # --- 22. the mesh programs on NCCL, world size 1, as a subprocess ------
+    phase(22)
+    mesh = _mesh_phase(root)
+    print(f"# phases 21-22 took {streams_b['seconds']:.1f} s and "
+          f"{mesh['phase_seconds']:.1f} s", flush=True)
+
+    # --- 20. the lines (after phases 21 and 22) ------------------------------
     phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
@@ -1662,6 +2204,9 @@ def main() -> int:
              "surface_align_padded": (surface["launches"]["align_padded"], 1),
              "surface_epipolar_align_1d":
                  (surface["launches"]["epipolar_align_1d"], 1)}
+    # batched steps: launches per batched step, whatever the streams
+    paths.update({f"streams_vmapped_b{B}": (r["launches"], r["steps"])
+                  for B, r in streams_b["by_b"].items()})
     # the reference runs K2 for pinhole cameras only (pallas_align.py:53):
     # the ATAN and Omni paths align with the plain loop; the bootstrap's
     # two stages before tracking align nothing
@@ -1696,18 +2241,19 @@ def main() -> int:
          "library_ms": main_k1["library_ms"],
          "launches_by_path": k1_by, "launches_per_frame": k1_pf,
          "device_ms_per_step": main_ms("tile_gather"),
-         "by_shape": k1_shapes},
+         "by_shape": k1_shapes, "batched": streams_b["k1_batched"]},
         {"name": "sparse_align", "route": "cuda",
          "source": "rpg_svo_tpu_torch/csrc/sparse_align.cu",
          "replaces": "rpg_svo_tpu/ops/pallas_align.py:58",
-         "launches": fast["launches"]["sparse_align"], "max_abs_err": k2_err,
+         "launches": fast["launches"]["sparse_align"],
+         "max_abs_err": max(k2_err, streams_b["k2_batched"]["max_abs_err"]),
          "ms": statistics.median(r["ms"] for r in k2_fast),
          "plain_ms": k2_fast[0]["plain_ms"],
          "bound_ms": statistics.median(r["bound_ms"] for r in k2_fast),
          "bound_by": k2_fast[0]["bound_by"], "library_ms": None,
          "launches_by_path": k2_by, "launches_per_frame": k2_pf,
          "device_ms_per_step": main_ms("sparse_align"),
-         "by_trial": k2_runs},
+         "by_trial": k2_runs, "batched": streams_b["k2_batched"]},
     ]
     summary = {"slice_a": {"frames": SLICE_A_FRAMES,
                            "median_terr_mm": float(np.median(terr_a)) * 1e3,
@@ -1727,8 +2273,14 @@ def main() -> int:
                "handler_atan": handler_atan, "handler_omni": handler_omni,
                "driver_blender": driver_blender, "driver_euroc": driver_euroc,
                "checkpoint": ckpt, "live": live, "surface": surface,
+               "streams": streams_b, "mesh": mesh,
                "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
+    # the whole summary also as a file: the printed line outgrows the tail
+    # of the output that a remote run returns
+    (root / "chiprun_out").mkdir(exist_ok=True)
+    (root / "chiprun_out" / "chip_smoke_summary.json").write_text(
+        json.dumps(summary, indent=1))
     print("# summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(_smi_line())

@@ -58,3 +58,10 @@ def resolve_device(device=None) -> torch.device:
             "rpg_svo_tpu_torch: CUDA is not available; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def is_batched(*tensors) -> bool:
+    """Whether any tensor is a stream batch under ``torch.func.vmap``
+    (parallel/streams.py): the kernels' wrappers route a batch to their
+    custom ops, and the alignment skips its CPU early exit for one."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in tensors)

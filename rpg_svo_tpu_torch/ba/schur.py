@@ -12,7 +12,7 @@ and back-substitutes the points.  Huber weights with information
 back with 8x damping.
 
 The JAX package sums per camera with one-hot matmuls at HIGHEST precision
-(TPU layout); here the sums are ``index_add_`` in float32.  Its
+(TPU layout); here the sums are ``index_add`` in float32.  Its
 ``while_loop`` with the chi2-plateau exit becomes ``n_iter`` masked
 iterations whose state freezes once the exit condition holds, so the
 solve reads nothing back to the host.
@@ -94,7 +94,7 @@ def _per_camera(vals, vidx, n_var: int):
     flat = vals.reshape(-1, math.prod(tail))
     out = torch.zeros((n_var + 1, flat.shape[1]), dtype=vals.dtype,
                       device=vals.device)
-    out.index_add_(0, vidx.reshape(-1), flat)
+    out = out.index_add(0, vidx.reshape(-1), flat)
     return out[:n_var].reshape((n_var,) + tail)
 
 
@@ -140,7 +140,7 @@ def build_system(prob: BAProblem, R, t, p_w, huber_k, damping, vidx,
     # Y[p, v] = sum of W over point p's observations in variable camera v
     rows = torch.arange(P, device=cam.device)[:, None] * (n_var + 1) + vidx
     Y = torch.zeros((P * (n_var + 1), 18), device=p_w.device)
-    Y.index_add_(0, rows.reshape(-1), Wc.reshape(-1, 18))
+    Y = Y.index_add(0, rows.reshape(-1), Wc.reshape(-1, 18))
     Y = Y.reshape(P, n_var + 1, 6, 3)[:, :n_var]
     YV = torch.sum(Y[..., :, :, None] * Vinv[:, None, None, :, :], dim=-2)
     flat = lambda a: a.permute(1, 2, 0, 3).reshape(n_var * 6, P * 3)  # noqa: E731,E501
@@ -170,6 +170,13 @@ def assemble_solve(U, b_c, S_corr, rhs_corr, vok, damping):
     return torch.where(vok[:, None], dx, torch.zeros_like(dx))
 
 
+def expand_dx(dx_v, vsel, vok, K: int):
+    """The compact camera updates scattered back to the (K, 6) pool
+    layout; fixed cameras get 0."""
+    return set_rows(torch.zeros((K, 6), dtype=dx_v.dtype,
+                                device=dx_v.device), vsel, dx_v, vok)
+
+
 def point_backsub(Vinv, b_p, Y, dx_v, p_valid):
     """dx_p = V^-1 (b_p - W^T dx_c[cam]), point by point."""
     Wt_dxc = torch.sum(Y * dx_v[None, :, :, None], dim=(1, 2))   # (P, 3)
@@ -177,14 +184,20 @@ def point_backsub(Vinv, b_p, Y, dx_v, p_valid):
     return torch.where(p_valid[:, None], dx_p, torch.zeros_like(dx_p))
 
 
+def _one_device(tree):
+    """The sums over points of one device: the tree as it is."""
+    return tree
+
+
 def _gn_step(prob, R, t, p_w, huber_k, damping, vsel, vok, vidx,
-             n_var: int, cam):
-    """One Schur GN step: (R', t', p_w', chi2 before the step)."""
+             n_var: int, cam, reduce=_one_device):
+    """One Schur GN step: (R', t', p_w', chi2 before the step); the
+    reduced system and chi2 go through ``reduce`` first."""
     U, b_c, S_corr, rhs_corr, (Vinv, b_p, Y), chi2 = build_system(
         prob, R, t, p_w, huber_k, damping, vidx, n_var, cam)
+    U, b_c, S_corr, rhs_corr, chi2 = reduce((U, b_c, S_corr, rhs_corr, chi2))
     dx_v = assemble_solve(U, b_c, S_corr, rhs_corr, vok, damping)
-    dx_c = set_rows(torch.zeros((R.shape[0], 6), device=R.device), vsel,
-                    dx_v, vok)
+    dx_c = expand_dx(dx_v, vsel, vok, R.shape[0])
     dx_p = point_backsub(Vinv, b_p, Y, dx_v, prob.p_valid)
     T_new = SE3.exp(dx_c) * SE3(R, t)
     return T_new.R, T_new.t, p_w + dx_p, chi2
@@ -192,12 +205,18 @@ def _gn_step(prob, R, t, p_w, huber_k, damping, vsel, vok, vidx,
 
 def solve_ba(prob: BAProblem, n_iter: int = 10, huber_width: float = 1.0,
              reproj_thresh_unitplane: float = 0.005,
-             n_var_max: int = 0) -> BAResult:
+             n_var_max: int = 0, reduce=_one_device) -> BAResult:
     """Robust GN with chi2 rollback in two phases of n_iter/2 steps, the
     observations with a unit-plane residual above 3x the threshold pruned
     in between; the final inliers are those below the threshold
     (bundle_adjustment.cpp:96-116, 222-250).  n_var_max > 0 bounds the
-    variable cameras (the compacted reduced system); 0 lets all K be."""
+    variable cameras (the compacted reduced system); 0 lets all K be.
+
+    Every sum over points goes through ``reduce`` (a tree of tensors in,
+    the tree of their sums out): the reduced system and chi2 of a step in
+    one call, the rollback's chi2 and NaN count in another.  Local BA in
+    mesh mode passes the point rows of this rank and an all-reduce over
+    their axis; p_w and the inliers then come back as this rank's rows."""
     K = prob.R.shape[0]
     dev = prob.R.device
     n_var = K if not n_var_max else min(K, n_var_max)
@@ -205,7 +224,7 @@ def solve_ba(prob: BAProblem, n_iter: int = 10, huber_width: float = 1.0,
     cam = torch.clamp(prob.obs_cam, 0, K - 1).to(torch.int64)
     vidx = inv_map[cam]
     hk = float(huber_width)
-    chi2_init = _chi2(prob, prob.R, prob.t, prob.p_w, hk, cam)
+    chi2_init = reduce(_chi2(prob, prob.R, prob.t, prob.p_w, hk, cam))
 
     def run_phase(pb, n: int, R, t, p, chi2_0):
         """Up to n GN steps; the state freezes once 4 stall points have
@@ -217,10 +236,11 @@ def solve_ba(prob: BAProblem, n_iter: int = 10, huber_width: float = 1.0,
         for _ in range(n):
             live = stall < 4
             Rn, tn, pn, chi2 = _gn_step(pb, R, t, p, hk, damping, vsel, vok,
-                                        vidx, n_var, cam)
-            bad = torch.isnan(chi2) | torch.any(torch.isnan(tn)) \
-                | torch.any(torch.isnan(pn))
-            chi2_new = _chi2(pb, Rn, tn, pn, hk, cam)
+                                        vidx, n_var, cam, reduce)
+            chi2_new, n_nan = reduce((
+                _chi2(pb, Rn, tn, pn, hk, cam),
+                torch.any(torch.isnan(pn)).to(torch.float32)))
+            bad = torch.isnan(chi2) | torch.any(torch.isnan(tn)) | (n_nan > 0)
             improve = (chi2_new < best) & ~bad & live
             progress = improve & (best - chi2_new
                                   > 1e-4 * torch.clamp(best, min=1e-30))
@@ -246,7 +266,7 @@ def solve_ba(prob: BAProblem, n_iter: int = 10, huber_width: float = 1.0,
     keep = prob.obs_mask & (torch.linalg.vector_norm(res, dim=-1)
                             < 3.0 * reproj_thresh_unitplane)
     prob2 = prob._replace(obs_mask=keep)
-    chi2_1 = _chi2(prob2, R, t, p, hk, cam)
+    chi2_1 = reduce(_chi2(prob2, R, t, p, hk, cam))
     R, t, p, chi2_final = run_phase(prob2, n_iter - n1, R, t, p, chi2_1)
     p_cam, _ = _apply_cams(R, t, cam, p)
     res = project2d(prob.obs_f) - project2d(p_cam)

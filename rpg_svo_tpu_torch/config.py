@@ -131,12 +131,12 @@ class Config:
     use_imu: bool = False
     img_imu_delay: float = 0.0
 
-    # --- mesh sharding (TPU addition) ---
+    # --- mesh sharding ---
     # Name of the mesh axis over which the fused step's batched internals
-    # (depth-filter K-domain epipolar scan, local-BA point blocks) are
-    # GSPMD-sharded via with_sharding_constraint (parallel/gspmd.py).
-    # "" = single-chip program, no constraints.  Callers must wrap the
-    # step in `with jax.set_mesh(mesh)`; see parallel/fused_mesh.py.
+    # (depth-filter K-domain epipolar match, local-BA point blocks) are
+    # sharded, each rank taking its rows (parallel/gspmd.py).  "" = the
+    # single-device step, no collective.  Set by parallel/fused_mesh.py,
+    # which makes the mesh ambient around the step.
     shard_axis: str = ""
 
     # --- debug/measurement only ---

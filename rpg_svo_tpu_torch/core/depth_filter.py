@@ -1,8 +1,8 @@
 """Probabilistic depth filter: Bayesian inverse-depth seeds, batched.
 
 Port of ``rpg_svo_tpu/core/depth_filter.py`` (DepthFilter and Seed,
-svo/src/depth_filter.cpp) without its mesh-sharding option.  The whole
-seed pool updates in one batched pass per frame:
+svo/src/depth_filter.cpp).  The whole seed pool updates in one batched
+pass per frame:
 
 - seed init: a = b = 10, mu = 1/depth_mean, z_range = 1/depth_min,
   sigma2 = (z_range/6)^2 (depth_filter.cpp:37-46), with the keyframe
@@ -18,13 +18,17 @@ seed pool updates in one batched pass per frame:
 
 ``update_k`` compacts the eligible seeds to that many (least-served first,
 then the rest in index order, with the JAX package's exact order) before
-the search, so its cost follows the live seeds.  The fused step runs the
-update every frame and keeps or drops its result with a select (the JAX
-step's ``lax.cond``); nothing reads a value back to the host.
+the search, so its cost follows the live seeds.  In mesh mode
+(``shard_axis``, parallel/fused_mesh.py) each rank matches its rows of
+that K-domain and the matches are all-gathered before the update.  The
+fused step runs the update every frame and keeps or drops its result with
+a select (the JAX step's ``lax.cond``); nothing reads a value back to the
+host.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -36,9 +40,10 @@ from rpg_svo_tpu_torch.core.map import (
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.ops.detector import detect_features
 from rpg_svo_tpu_torch.ops.matcher import (
-    epipolar_geometry, epipolar_search, warp_affine_patches_tiles,
-    warp_rotated_tiles)
+    epipolar_geometry, epipolar_search, long_table_rows,
+    warp_affine_patches_tiles, warp_rotated_tiles)
 from rpg_svo_tpu_torch.ops.patches import empty_tiles, extract_tiles
+from rpg_svo_tpu_torch.parallel.gspmd import gather_dim0, shard_dim0
 
 INIT_A = 10.0
 INIT_B = 10.0
@@ -275,12 +280,23 @@ def update_seeds(m: MapState, cur_pad, T_cur_w: SE3, cam,
     return apply_seed_update(m, upd), upd.stats
 
 
+def _pick_long_over(long, long_k: int, axis: str):
+    """``long_table_rows`` over the whole domain sharded over ``axis``
+    (one all-gather of the long mask): this rank's rows of the long
+    segments the whole table holds, and the row count on this rank."""
+    long_all = gather_dim0(long, axis)
+    _, kl = long_table_rows(long_all, long_k)
+    gsel, gok = mask_compact(long_all, kl)
+    return (shard_dim0(set_rows(torch.zeros_like(long_all), gsel, gok, gok),
+                       axis), min(kl, long.shape[0]))
+
+
 def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
                         max_n_kfs: int = 3, conv_thresh: float = 200.0,
                         max_steps: int = 256, update_k: int = 0,
                         enable=True, short_steps: int = 0, long_k: int = 0,
-                        max_level: int = 2,
-                        scan_rows: int = 8) -> SeedFieldUpdate:
+                        max_level: int = 2, scan_rows: int = 8,
+                        shard_axis: str = "") -> SeedFieldUpdate:
     """One batched update of all active seeds against the current frame
     (its padded pyramid ``cur_pad``); returns the field deltas.
 
@@ -288,7 +304,9 @@ def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
     many before the search: the least-served seeds first (minimum
     ``upd_count``), then the other eligible seeds in index order; the
     rest skip this frame without evidence.  ``enable`` (0-d bool tensor or
-    bool) masks the update: when False the fields come back unchanged."""
+    bool) masks the update: when False the fields come back unchanged.
+    ``shard_axis`` (with ``update_k``) shards the K-domain match over that
+    axis of the ambient mesh."""
     seed = m.seed
     S = seed.active.shape[0]
     dev = seed.active.device
@@ -309,7 +327,7 @@ def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
     d_max = 1.0 / z_inv_max
     px_error_angle = math.atan(1.0 / (2.0 * cam.fx)) * 2.0
 
-    def match(idx, elig):
+    def match(idx, elig, pick_long=long_table_rows):
         """Epipolar match of the seeds ``idx`` (ref patches from their
         creation-time tiles): (depth_ref, success, scanned)."""
         T_cr = SE3(T_cur_ref.R[idx], T_cur_ref.t[idx])
@@ -327,7 +345,7 @@ def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
             cur_pad, cam, geom, T_cr, seed.f[idx], ref_b, ref_r, okb & okr,
             elig, max_steps=max_steps, ftr_type=seed.ftype[idx],
             ftr_grad=seed.grad[idx], short_steps=short_steps, long_k=long_k,
-            scan_rows=scan_rows)
+            scan_rows=scan_rows, pick_long=pick_long)
         return mm.depth_ref, mm.success, mm.scanned
 
     def bayes(idx, depth, matched, failed):
@@ -367,7 +385,17 @@ def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
         sel = torch.where(v1, sel1, fill)
         elig_c = v1 | ((j - n1 >= 0) & (j - n1 < torch.sum(v2)))
         sel = torch.where(elig_c, sel, torch.zeros_like(sel))
-        depth, succ, scanned = match(sel, elig_c)
+        if shard_axis:
+            # mesh mode: this rank matches its rows of the K-domain (each
+            # reads the whole current pyramid); the rows' results are
+            # all-gathered for the update; the long-segment table is picked
+            # over the whole domain, so every row scans as on one device
+            depth, succ, scanned = gather_dim0(
+                match(*shard_dim0((sel, elig_c), shard_axis),
+                      functools.partial(_pick_long_over, axis=shard_axis)),
+                shard_axis)
+        else:
+            depth, succ, scanned = match(sel, elig_c)
         matched = succ & elig_c
         failed = elig_c & ~succ & scanned
         mu_k, s2_k, a_k, b_k, conv_k, p_w_k, nan_k = bayes(

@@ -173,7 +173,8 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
         mb = run_local_ba(m, torch.clamp(slot, min=0),
                           cfg.loba_robust_huber_width, cfg.loba_thresh,
                           cam.fx, n_iter=cfg.loba_num_iter,
-                          core_n_kfs=cfg.core_n_kfs)
+                          core_n_kfs=cfg.core_n_kfs,
+                          shard_axis=cfg.shard_axis)
         keep = lambda a, b: torch.where(is_kf, a, b)  # noqa: E731
         m = m._replace(
             kf=m.kf._replace(R=keep(mb.kf.R, m.kf.R), t=keep(mb.kf.t, m.kf.t)),
@@ -340,7 +341,7 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
             max_steps=cfg.epi_max_steps, update_k=cfg.df_update_k,
             enable=due_work, short_steps=cfg.epi_short_steps,
             long_k=cfg.epi_long_k, max_level=cfg.n_pyr_levels - 1,
-            scan_rows=cfg.epi_scan_rows)
+            scan_rows=cfg.epi_scan_rows, shard_axis=cfg.shard_axis)
         m = df.apply_seed_update(m, upd)
 
     # --- 8. keyframe insertion, binding, local BA, seeds, map cap; every

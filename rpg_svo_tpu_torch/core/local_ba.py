@@ -16,6 +16,8 @@ demand), which solve over the whole point pool.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from rpg_svo_tpu_torch.ba.schur import BAProblem, _apply_cams, solve_ba
@@ -23,6 +25,7 @@ from rpg_svo_tpu_torch.core.map import (
     TYPE_DELETED, TYPE_UNKNOWN, MapState, kf_positions,
     mask_compact_priority, set_rows)
 from rpg_svo_tpu_torch.geometry.cameras import project2d
+from rpg_svo_tpu_torch.parallel.gspmd import gather_dim0, psum, shard_dim0
 
 
 def _extract_observations_rows(kf, obs_kf, obs_feat, obs_valid, orig_kf,
@@ -106,17 +109,31 @@ def build_local_ba_problem(m: MapState, new_kf_slot: torch.Tensor,
 def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
                  huber_width_px: float, reproj_thresh_px: float, fx: float,
                  n_iter: int = 10, core_n_kfs: int = 3,
-                 max_core_points: int = 4096) -> MapState:
+                 max_core_points: int = 4096,
+                 shard_axis: str = "") -> MapState:
     """Local BA around ``new_kf_slot``; returns the updated map (variable
     keyframe poses, the solved points' positions, pruned observations and
-    starved points deleted)."""
+    starved points deleted).  With ``shard_axis`` (mesh mode,
+    parallel/fused_mesh.py) the point blocks of the Schur solve are
+    sharded over that axis of the ambient mesh: each rank solves its rows,
+    the reduced camera system is all-reduced, and the solved rows are
+    all-gathered for the write-back."""
     kf, pt = m.kf, m.pt
     M = pt.obs_kf.shape[1]
     prob, sel, selok, variable = build_local_ba_problem(
         m, new_kf_slot, core_n_kfs, max_core_points)
+    if shard_axis:
+        pts = ("p_w", "p_valid", "obs_cam", "obs_f", "obs_level",
+               "obs_mask")
+        prob = prob._replace(**shard_dim0(
+            {k: getattr(prob, k) for k in pts}, shard_axis))
     res = solve_ba(prob, n_iter=n_iter, huber_width=huber_width_px / fx,
                    reproj_thresh_unitplane=reproj_thresh_px / fx,
-                   n_var_max=core_n_kfs + 1)
+                   n_var_max=core_n_kfs + 1,
+                   reduce=functools.partial(psum, axis=shard_axis))
+    if shard_axis:
+        p_w, inlier = gather_dim0((res.p_w, res.obs_inlier), shard_axis)
+        res = res._replace(p_w=p_w, obs_inlier=inlier)
     kf = kf._replace(R=torch.where(variable[:, None, None], res.R, kf.R),
                      t=torch.where(variable[:, None], res.t, kf.t))
     ov_rows = pt.obs_valid[sel] & res.obs_inlier[:, :M]

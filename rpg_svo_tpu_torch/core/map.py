@@ -222,9 +222,7 @@ def alloc_scatter(arr: torch.Tensor, slots: torch.Tensor,
     """arr with values written at slots; slots == -1 write the scratch
     (last) row.  Returns a new tensor."""
     sw = torch.where(slots >= 0, slots, torch.full_like(slots, arr.shape[0] - 1))
-    out = arr.clone()
-    out[sw.to(torch.int64)] = values
-    return out
+    return arr.index_put((sw.to(torch.int64),), values)
 
 
 def set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
@@ -237,8 +235,7 @@ def set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
     ext = torch.cat([arr, arr[:1]])
     tgt = torch.where(ok, idx.to(torch.int64), torch.full_like(
         idx, n, dtype=torch.int64))
-    ext.index_put_((tgt,), values)
-    return ext[:n]
+    return ext.index_put((tgt,), values)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -357,10 +354,9 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
     Fs = kf.feat_tile.shape[1]
 
     def put(arr, val):
-        out = arr.clone()
         val = val.reshape((1,) + tuple(arr.shape[1:])).to(arr.dtype)
-        out.index_copy_(0, sw, torch.where(ok, val, arr.index_select(0, sw)))
-        return out
+        return arr.index_put((sw,), torch.where(ok, val,
+                                                arr.index_select(0, sw)))
 
     kf = kf._replace(
         flat_pyr=put(kf.flat_pyr, stack),
@@ -439,8 +435,8 @@ def add_point_observations(pt: PointStore, point_ids, kf_slot, feat_idx,
 
     def put(arr, val):
         ext = torch.cat([arr.reshape(-1), arr.reshape(-1)[:1]])
-        ext.index_put_((flat,), val.to(arr.dtype))
-        return ext[:P * M].reshape(P, M)
+        return ext.index_put((flat,), val.to(arr.dtype))[:P * M] \
+            .reshape(P, M)
 
     return pt._replace(
         obs_kf=put(pt.obs_kf, kf_slot),

@@ -56,6 +56,15 @@
 // The TPU kernel's one-hot window contractions and features-in-lanes
 // transpose are layout work and are not carried over.
 //
+// Stream batches: under torch.func.vmap (parallel/streams.py) one launch
+// aligns B camera streams, as a pallas_call under jax.vmap gains a grid
+// axis.  Block b aligns stream b: its own reference and current stacks,
+// features, initial pose and output row, at per-stream strides (0 for an
+// input the streams share); the camera, level table, iteration count,
+// eps and level range are shared.  Each block is the single-stream
+// alignment as it stands, with its shared-memory budget per block; the
+// single-stream entry point is the same kernel with one block.
+//
 // Build without fast math: the rollback test needs NaN from the reciprocal
 // square root of a negative pivot, and NaN must propagate through the
 // comparisons exactly as in the reference (converged = !anynan &&
@@ -78,6 +87,11 @@ struct LevelTable {
 struct Cam {
   float fx, fy, cx, cy, k1, k2, p1, p2, k3;
   int distort;  // 0 for PinholeCameraIdeal: world2cam skips the distortion
+};
+
+// Elements from one stream's inputs to the next (0: shared by the streams).
+struct StreamStrides {
+  long long ref, cur, px, f, depth, valid, R, t;
 };
 
 namespace {
@@ -108,6 +122,7 @@ constexpr int kSmemPerFeat =
 // int32 slots: 50 tracked features, 56 + l iterations run at level l
 constexpr int kOutTracked = 50;
 constexpr int kOutIters = 56;
+constexpr int kOutLen = 64;
 
 static_assert(kWarps * (32 / kWarps) == 32 && kWarps <= 32,
               "the cross-warp reduction needs a power-of-two warp count");
@@ -479,7 +494,20 @@ sparse_align_kernel(const float* __restrict__ ref_stack,
                     const unsigned char* __restrict__ valid,
                     const float* __restrict__ R0, const float* __restrict__ t0,
                     Cam cam, int max_level, int min_level, int n_iter,
-                    float eps, int n, float* __restrict__ out) {
+                    float eps, int n, float* __restrict__ out,
+                    int* outi, StreamStrides ss) {
+  // this block's stream
+  const long long b = blockIdx.x;
+  ref_stack += b * ss.ref;
+  cur_stack += b * ss.cur;
+  px += b * ss.px;
+  fb += b * ss.f;
+  depth += b * ss.depth;
+  valid += b * ss.valid;
+  R0 += b * ss.R;
+  t0 += b * ss.t;
+  out += b * kOutLen;
+  outi += b * kOutLen;
   extern __shared__ float4 smem_raw[];
   Feats F;
   F.jac = reinterpret_cast<float*>(smem_raw);
@@ -505,7 +533,7 @@ sparse_align_kernel(const float* __restrict__ ref_stack,
   // levels the launch does not run report 0 iterations
   if (threadIdx.x == 0)
     for (int l = 0; l < kMaxLevels; ++l)
-      reinterpret_cast<int*>(out)[kOutIters + l] = 0;
+      outi[kOutIters + l] = 0;
   __syncthreads();
   for (int level = max_level; level >= min_level; --level) {
     const float scale = ldexpf(1.f, -level);
@@ -561,8 +589,8 @@ sparse_align_kernel(const float* __restrict__ ref_stack,
       if (!(chi2f <= bchi2))
         for (int k = 0; k < 12; ++k) T[k] = bT[k];
       chi2_out = nan_min(chi2f, bchi2);
-      reinterpret_cast<int*>(out)[kOutTracked] = static_cast<int>(tot[28]);
-      reinterpret_cast<int*>(out)[kOutIters + level] = iters;
+      outi[kOutTracked] = static_cast<int>(tot[28]);
+      outi[kOutIters + level] = iters;
     }
     __syncthreads();
   }
@@ -582,13 +610,16 @@ sparse_align_kernel(const float* __restrict__ ref_stack,
 
 }  // namespace
 
-extern "C" int sparse_align(const float* ref_stack, const float* cur_stack,
-                            int ws, LevelTable tab, const float* px,
-                            const float* f, const float* depth,
-                            const unsigned char* valid, const float* R0,
-                            const float* t0, Cam cam, int max_level,
-                            int min_level, int n_iter, float eps, int n,
-                            float* out, cudaStream_t stream) {
+// B streams in one launch, one block each: stream b reads its inputs at
+// the strides of ss and writes the float slots of its output row to
+// out[b * 64 .. + 64) and the int32 slots (tracked features, iterations
+// per level) to the same offsets of outi[b * 64 .. + 64).
+extern "C" int sparse_align_batched(
+    const float* ref_stack, const float* cur_stack, int ws, LevelTable tab,
+    const float* px, const float* f, const float* depth,
+    const unsigned char* valid, const float* R0, const float* t0, Cam cam,
+    int max_level, int min_level, int n_iter, float eps, int n, float* out,
+    int* outi, StreamStrides ss, int nb, cudaStream_t stream) {
   // every feature's state lives in the block's shared memory; a count
   // that does not fit is refused here (the error is cleared, so later
   // launches do not report it)
@@ -604,8 +635,24 @@ extern "C" int sparse_align(const float* ref_stack, const float* cur_stack,
     }
     smem_set = smem;
   }
-  sparse_align_kernel<<<1, kThreads, smem, stream>>>(
-      ref_stack, cur_stack, ws, tab, px, f, depth, valid, R0, t0, cam,
-      max_level, min_level, n_iter, eps, n, out);
+  if (nb > 0)
+    sparse_align_kernel<<<nb, kThreads, smem, stream>>>(
+        ref_stack, cur_stack, ws, tab, px, f, depth, valid, R0, t0, cam,
+        max_level, min_level, n_iter, eps, n, out, outi, ss);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sparse_align(const float* ref_stack, const float* cur_stack,
+                            int ws, LevelTable tab, const float* px,
+                            const float* f, const float* depth,
+                            const unsigned char* valid, const float* R0,
+                            const float* t0, Cam cam, int max_level,
+                            int min_level, int n_iter, float eps, int n,
+                            float* out, cudaStream_t stream) {
+  // one stream: the int32 slots share the float output row
+  return sparse_align_batched(ref_stack, cur_stack, ws, tab, px, f, depth,
+                              valid, R0, t0, cam, max_level, min_level,
+                              n_iter, eps, n, out,
+                              reinterpret_cast<int*>(out), StreamStrides{},
+                              1, stream);
 }

@@ -20,6 +20,13 @@
 // aligned load plus two rolls is a VMEM layout trick and is not carried
 // over.  The copy is exact: tiles and origins are bit-identical to the
 // torch clamp plus flat-index gather of ops/tiles.py::gather_tiles_plain.
+//
+// Stream batches: under torch.func.vmap (parallel/streams.py) one launch
+// serves B camera streams, as a pallas_call under jax.vmap gains a grid
+// axis.  blockIdx.y is the stream; each stream has its own stack and
+// requests (per-stream strides, 0 for a shared one) and writes its own
+// tiles and origins.  The single-stream entry point is the same kernel
+// with one stream.
 
 #include <cuda_runtime.h>
 
@@ -43,16 +50,26 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-tile_gather_kernel(const float* __restrict__ stack, int ws, LevelTable tab,
-                   const int* __restrict__ level, long long level_stride,
-                   const int* __restrict__ x0, long long x0_stride,
-                   const int* __restrict__ y0, long long y0_stride,
+tile_gather_kernel(const float* __restrict__ stack, long long stack_bs,
+                   int ws, LevelTable tab, const int* __restrict__ level,
+                   long long level_bs, long long level_stride,
+                   const int* __restrict__ x0, long long x0_bs,
+                   long long x0_stride, const int* __restrict__ y0,
+                   long long y0_bs, long long y0_stride,
                    float* __restrict__ out, int* __restrict__ org, int n,
                    int th, int tw) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   const int per_item = th * tw;
   if (e >= static_cast<long long>(n) * per_item) return;
+  // this block's stream
+  const long long b = blockIdx.y;
+  stack += b * stack_bs;
+  level += b * level_bs;
+  x0 += b * x0_bs;
+  y0 += b * y0_bs;
+  out += b * n * per_item;
+  org += b * 2 * n;
   const int item = static_cast<int>(e / per_item);
   const int rem = static_cast<int>(e - static_cast<long long>(item) *
                                            per_item);
@@ -78,18 +95,33 @@ tile_gather_kernel(const float* __restrict__ stack, int ws, LevelTable tab,
 
 }  // namespace
 
+// B streams in one launch: stream b reads stack + b * stack_bs and its
+// requests at + b * *_bs, and writes out[b] (n, th, tw) and org[b] (2, n).
+extern "C" int tile_gather_batched(const float* stack, long long stack_bs,
+                                   int ws, LevelTable tab, const int* level,
+                                   long long level_bs, long long level_stride,
+                                   const int* x0, long long x0_bs,
+                                   long long x0_stride, const int* y0,
+                                   long long y0_bs, long long y0_stride,
+                                   float* out, int* org, int n, int th,
+                                   int tw, int nb, cudaStream_t stream) {
+  const long long total = static_cast<long long>(n) * th * tw;
+  if (total > 0 && nb > 0) {
+    const dim3 grid(static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(nb));
+    tile_gather_kernel<<<grid, kThreads, 0, stream>>>(
+        stack, stack_bs, ws, tab, level, level_bs, level_stride, x0, x0_bs,
+        x0_stride, y0, y0_bs, y0_stride, out, org, n, th, tw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int tile_gather(const float* stack, int ws, LevelTable tab,
                            const int* level, long long level_stride,
                            const int* x0, long long x0_stride, const int* y0,
                            long long y0_stride, float* out, int* org, int n,
                            int th, int tw, cudaStream_t stream) {
-  const long long total = static_cast<long long>(n) * th * tw;
-  if (total > 0) {
-    const unsigned blocks =
-        static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    tile_gather_kernel<<<blocks, kThreads, 0, stream>>>(
-        stack, ws, tab, level, level_stride, x0, x0_stride, y0, y0_stride,
-        out, org, n, th, tw);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tile_gather_batched(stack, 0, ws, tab, level, 0, level_stride, x0,
+                             0, x0_stride, y0, 0, y0_stride, out, org, n, th,
+                             tw, 1, stream);
 }

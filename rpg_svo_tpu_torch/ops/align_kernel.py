@@ -7,6 +7,11 @@ whole coarse-to-fine alignment, reference patches, Jacobians and window
 reads included, in one launch for CUDA tensors.  Its plain twin is
 ``sparse_align.sparse_img_align_plain``; ``level_tiles`` is the plain
 path's tile gather around each feature's initial projection.
+
+Under ``torch.func.vmap`` (a batch of camera streams, parallel/streams.py)
+the launcher calls the custom op ``svo_torch::sparse_align``, whose vmap
+rule aligns every stream in one launch of K2 with one block per stream;
+on the CPU the op runs the plain twin stream by stream.
 """
 
 from __future__ import annotations
@@ -15,11 +20,14 @@ import ctypes
 
 import torch
 
+from rpg_svo_tpu_torch import is_batched
 from rpg_svo_tpu_torch.geometry.cameras import (
     PinholeCamera, PinholeCameraIdeal)
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.ops import cuda_build
-from rpg_svo_tpu_torch.ops.tiles import MAX_LEVELS, LevelTable, gather_tiles
+from rpg_svo_tpu_torch.ops.tiles import (
+    MAX_LEVELS, LevelTable, _kernel_table, _shapes_arg, _shapes_of,
+    _stream_major, gather_tiles, padded_layout)
 
 PATCH_HALFSIZE = 2
 PATCH_SIZE = 4
@@ -53,6 +61,24 @@ def _cam_struct(cam: PinholeCamera) -> _Cam:
                 cam.p2, cam.k3, int(not isinstance(cam, PinholeCameraIdeal)))
 
 
+class _StreamStrides(ctypes.Structure):
+    """``StreamStrides`` of ``csrc/sparse_align.cu``, passed by value."""
+    _fields_ = [(k, ctypes.c_longlong) for k in
+                ("ref", "cur", "px", "f", "depth", "valid", "R", "t")]
+
+
+def _cam_list(cam: PinholeCamera) -> list:
+    """The camera as the op's float list: its fields, then 1.0 for a
+    PinholeCameraIdeal."""
+    return [float(v) for v in cam] \
+        + [float(isinstance(cam, PinholeCameraIdeal))]
+
+
+def _cam_of(vals) -> PinholeCamera:
+    cls = PinholeCameraIdeal if vals[-1] else PinholeCamera
+    return cls(*[float(v) for v in vals[:-1]])
+
+
 _K2_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, LevelTable,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _Cam,
@@ -73,14 +99,22 @@ class _SparseAlign:
         each level (MAX_LEVELS,) int32) of the whole alignment; all views
         of the kernel's (64,) float32 output row.  A feature count whose
         per-feature state does not fit in one block's shared memory is
-        refused by the kernel's entry point."""
+        refused by the kernel's entry point.  A stream batch under vmap
+        goes through ``sparse_align_op``: one launch for every stream."""
         ref, cur = ref_pad.stack, cur_pad.stack
-        if not cur.is_cuda:
-            raise ValueError("sparse_align kernel needs CUDA tensors")
-        dev = cur.device
         if ref_pad.shapes != cur_pad.shapes:
             raise ValueError("reference and current pyramids differ in "
                              "layout")
+        if is_batched(ref, cur, T_init.R, T_init.t, feats_px, feats_f,
+                      feats_depth, feats_valid):
+            return _unpack(*sparse_align_op(
+                ref, cur, T_init.R, T_init.t, feats_px, feats_f,
+                feats_depth, feats_valid, _cam_list(cam),
+                _shapes_arg(cur_pad.shapes), int(max_level), int(min_level),
+                int(n_iter), float(eps)))
+        if not cur.is_cuda:
+            raise ValueError("sparse_align kernel needs CUDA tensors")
+        dev = cur.device
         if not 0 <= min_level <= max_level < min(len(cur_pad.shapes),
                                                  MAX_LEVELS):
             raise ValueError(f"levels {max_level}..{min_level} outside the "
@@ -111,13 +145,125 @@ class _SparseAlign:
                  cuda_build.raw_stream(dev))
         cuda_build.check(err, "sparse_align")
         self.launches += 1
+        return _unpack(out)
+
+    def batched(self, ref, cur, shapes, cam, R0, t0, px, f, depth, valid,
+                max_level: int, min_level: int, n_iter: int,
+                eps: float) -> torch.Tensor:
+        """B streams in one launch, one block each: stacks (B, Hs, Ws),
+        px (B, N, 2), f (B, N, 3), depth and valid (B, N), R0 (B, 3, 3),
+        t0 (B, 3), each stream's slab contiguous (stream stride 0 for a
+        shared input).  Returns the (B, OUT_LEN) output rows as two
+        tensors: the float slots, and the int32 slots at the same
+        offsets."""
+        if not cur.is_cuda:
+            raise ValueError("sparse_align kernel needs CUDA tensors")
+        dev = cur.device
+        Ws, Hs, _ = padded_layout(shapes)
+        if not 0 <= min_level <= max_level < min(len(shapes), MAX_LEVELS):
+            raise ValueError(f"levels {max_level}..{min_level} outside the "
+                             f"pyramid's {len(shapes)}")
+        B, N = int(cur.shape[0]), int(px.shape[1])
+        want = {"ref stack": (ref, torch.float32, (Hs, Ws)),
+                "cur stack": (cur, torch.float32, (Hs, Ws)),
+                "feats_px": (px, torch.float32, (N, 2)),
+                "feats_f": (f, torch.float32, (N, 3)),
+                "feats_depth": (depth, torch.float32, (N,)),
+                "feats_valid": (valid, torch.bool, (N,)),
+                "T_init.R": (R0, torch.float32, (3, 3)),
+                "T_init.t": (t0, torch.float32, (3,))}
+        for name, (a, dt, shape) in want.items():
+            if a.device != dev or a.dtype != dt \
+                    or tuple(a.shape) != (B,) + shape \
+                    or not a[0].is_contiguous():
+                raise ValueError(f"{name}: want {dt} {(B,) + shape} with "
+                                 f"contiguous streams on {dev}, got "
+                                 f"{a.dtype} {tuple(a.shape)} strides "
+                                 f"{a.stride()} on {a.device}")
+        out = torch.empty((B, OUT_LEN), dtype=torch.float32, device=dev)
+        outi = torch.empty((B, OUT_LEN), dtype=torch.int32, device=dev)
+        ss = _StreamStrides(ref.stride(0), cur.stride(0), px.stride(0),
+                            f.stride(0), depth.stride(0), valid.stride(0),
+                            R0.stride(0), t0.stride(0))
+        fn = cuda_build.function("sparse_align_batched", _K2B_ARGTYPES,
+                                 library="sparse_align")
+        err = fn(ref.data_ptr(), cur.data_ptr(), Ws, _kernel_table(shapes),
+                 px.data_ptr(), f.data_ptr(), depth.data_ptr(),
+                 valid.data_ptr(), R0.data_ptr(), t0.data_ptr(),
+                 _cam_struct(cam), int(max_level), int(min_level),
+                 int(n_iter), float(eps), N, out.data_ptr(), outi.data_ptr(),
+                 ss, B, cuda_build.raw_stream(dev))
+        cuda_build.check(err, "sparse_align_batched")
+        self.launches += 1
+        return out, outi
+
+
+def _unpack(out: torch.Tensor, ints: torch.Tensor = None):
+    """(T, n_tracked, H, chi2, iterations per level) from an output row
+    (its int32 slots in ``ints`` when they come apart from it)."""
+    if ints is None:
         ints = out.view(torch.int32)
-        return (SE3(out[:9].reshape(3, 3), out[9:12]), ints[OUT_TRACKED],
-                out[12:48].reshape(6, 6), out[48],
-                ints[OUT_ITERS:OUT_ITERS + MAX_LEVELS])
+    return (SE3(out[:9].reshape(3, 3), out[9:12]), ints[OUT_TRACKED],
+            out[12:48].reshape(6, 6), out[48],
+            ints[OUT_ITERS:OUT_ITERS + MAX_LEVELS])
 
 
 sparse_align_kernel = _SparseAlign()
+
+_K2B_ARGTYPES = _K2_ARGTYPES[:-1] + (ctypes.c_void_p, _StreamStrides,
+                                     ctypes.c_int, ctypes.c_void_p)
+
+
+@torch.library.custom_op(
+    "svo_torch::sparse_align", mutates_args=(),
+    schema="(Tensor ref, Tensor cur, Tensor R0, Tensor t0, Tensor px, "
+           "Tensor f, Tensor depth, Tensor valid, float[] cam, int[] shapes, "
+           "int max_level, int min_level, int n_iter, float eps) "
+           "-> (Tensor, Tensor)")
+def sparse_align_op(ref, cur, R0, t0, px, f, depth, valid, cam, shapes,
+                    max_level, min_level, n_iter, eps):
+    """The whole alignment for a stream batch (leading axis B on every
+    tensor): the (B, OUT_LEN) output rows as their float slots and their
+    int32 slots (an op may not return two views of one tensor, and vmap
+    has no rule for a dtype view in every torch); one launch of K2 on the
+    card, the plain twin stream by stream on the CPU.  The launcher
+    reaches it under vmap, through the rule below."""
+    shp = _shapes_of(shapes)
+    camera = _cam_of(cam)
+    if cur.is_cuda:
+        return sparse_align_kernel.batched(
+            ref, cur, shp, camera, R0, t0, px, f, depth, valid, max_level,
+            min_level, n_iter, eps)
+    from rpg_svo_tpu_torch.ops.sparse_align import sparse_img_align_plain
+    from rpg_svo_tpu_torch.ops.tiles import PaddedPyramid
+    rows, irows = [], []
+    for b in range(cur.shape[0]):
+        r = sparse_img_align_plain(
+            PaddedPyramid(ref[b], shp), PaddedPyramid(cur[b], shp), camera,
+            SE3(R0[b], t0[b]), px[b], f[b], depth[b], valid[b], max_level,
+            min_level, n_iter, eps)
+        row = torch.zeros((OUT_LEN,), dtype=torch.float32)
+        ints = torch.zeros((OUT_LEN,), dtype=torch.int32)
+        row[:9] = r.T_cur_ref.R.reshape(-1)
+        row[9:12] = r.T_cur_ref.t
+        row[12:48] = r.H.reshape(-1)
+        row[48] = r.chi2
+        row[49] = r.n_tracked * 16
+        ints[OUT_TRACKED] = r.n_tracked
+        ints[OUT_ITERS:OUT_ITERS + MAX_LEVELS] = r.iters
+        rows.append(row)
+        irows.append(ints)
+    return torch.stack(rows), torch.stack(irows)
+
+
+def _sparse_align_vmap(info, in_dims, *args):
+    tensors = _stream_major(info, in_dims[:8], *args[:8])
+    if tensors[1].dim() != 3:
+        raise NotImplementedError("sparse_align batches one stream axis")
+    return sparse_align_op(*tensors, *args[8:]), (0, 0)
+
+
+torch.library.register_vmap("svo_torch::sparse_align", _sparse_align_vmap)
 
 
 def level_tiles(cur_pad, cam, T_init: SE3, p_ref: torch.Tensor, level: int,

@@ -83,13 +83,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of the kernel library of the same name,
-    with its ``argtypes`` and an ``int`` (``cudaError_t``) result declared
-    once, at first use."""
+def function(name: str, argtypes: Sequence,
+             library: str = "") -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of the kernel library ``library`` (by
+    default the one of the same name), with its ``argtypes`` and an
+    ``int`` (``cudaError_t``) result declared once, at first use."""
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(load(name), name)
+        fn = getattr(load(library or name), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _fns[name] = fn

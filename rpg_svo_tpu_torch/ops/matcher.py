@@ -272,12 +272,20 @@ def _strip_scan(cur_pyr, pxA, dir_lvl, search_level, n_steps, ref_rot,
     return torch.amin(sc, dim=1), torch.argmin(sc, dim=1).to(torch.int32)
 
 
+def long_table_rows(long: torch.Tensor, long_k: int):
+    """(the long segments the table may hold, its row count): all of
+    them, in a table of ``min(ceil(long_k / 128) * 128, N)`` rows."""
+    N = long.shape[0]
+    return long, min(-(-(long_k or N) // 128) * 128, N)
+
+
 def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
                     ref_patch_border, ref_rot, ref_ok, valid,
                     max_steps: int = DEFAULT_MAX_STEPS, n_iter: int = 10,
                     ftr_type=None, ftr_grad=None, align_1d: bool = False,
                     short_steps: int = 0, long_k: int = 0,
-                    scan_rows: int = PATCH) -> EpipolarMatch:
+                    scan_rows: int = PATCH,
+                    pick_long=long_table_rows) -> EpipolarMatch:
     """ZMSSD scan along the epipolar segment of the padded current pyramid,
     align2D at the best window (align1D along the epipolar direction with
     ``align_1d``, matcher.h options_.align_1d), and triangulation
@@ -286,7 +294,10 @@ def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
     Two-tier scan (``short_steps``): segments of at most short_steps
     windows scan a short strip in place; longer ones are compacted into a
     table of ``min(ceil(long_k / 128) * 128, N)`` rows and scan at
-    max_steps; longs beyond it are not scanned (``scanned`` False)."""
+    max_steps; longs beyond it are not scanned (``scanned`` False).
+    ``pick_long(long, long_k)`` gives the long rows the table may hold and
+    its row count (``long_table_rows``; a mesh step whose rows are one
+    rank's of a sharded domain picks them over the whole domain)."""
     cur_pyr = cur_pad.flat_view()
     pxA, dir_lvl = geom.pxA, geom.dir_lvl
     search_level, n_steps = geom.search_level, geom.n_steps
@@ -296,8 +307,8 @@ def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
         is_short = n_steps <= short_steps
         sc_s, bi_s = _strip_scan(cur_pyr, pxA, dir_lvl, search_level,
                                  n_steps, ref_rot, short_steps, scan_rows)
-        kl = min(-(-(long_k or N) // 128) * 128, N)
-        sel, okl = mask_compact(~is_short & valid & ref_ok, kl)
+        long, kl = pick_long(~is_short & valid & ref_ok, long_k)
+        sel, okl = mask_compact(long, kl)
         sc_lc, bi_lc = _strip_scan(
             cur_pyr, pxA[sel], dir_lvl[sel], search_level[sel],
             torch.where(okl, n_steps[sel], torch.zeros_like(n_steps[sel])),

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch import is_batched
 from rpg_svo_tpu_torch.geometry.linalg import solve6x6_spd
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.geometry.triangulation import jacobian_xyz2uv
@@ -44,6 +45,13 @@ class AlignResult(NamedTuple):
     H: torch.Tensor           # (6, 6) final-level GN Hessian
     chi2: torch.Tensor        # final mean squared residual
     iters: torch.Tensor       # (MAX_LEVELS,) int32: GN iterations per level
+
+
+def _set_level(iters: torch.Tensor, level: int, it: torch.Tensor):
+    """iters with entry ``level`` set to ``it``, out of place (a stream
+    batch's ``it`` cannot be written into an unbatched buffer)."""
+    at = torch.arange(MAX_LEVELS, device=iters.device) == level
+    return torch.where(at, it.to(iters.dtype), iters)
 
 
 def _window(tile: torch.Tensor, o: torch.Tensor,
@@ -174,8 +182,9 @@ def _gn_loop(tile, base, p_ref, ref_patch, jac, valid, T_init: SE3, cam,
         H_last = torch.where(done, H_last, H)
         done = done | converged | stopped
         # on the CPU the remaining masked iterations change nothing, so
-        # stop reading them; on the card the check would be a host sync
-        if not done.is_cuda and bool(done):
+        # stop reading them; on the card the check would be a host sync,
+        # and under vmap the streams' flags are not one value
+        if not done.is_cuda and not is_batched(done) and bool(done):
             break
     res, m = residuals(T)
     _, _, chi2 = normal_eqs(res, m)
@@ -216,9 +225,10 @@ def sparse_img_align_plain(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
         ref_patch, jac, valid = _precompute_level(
             cam.fx, feats_px, feats_f, feats_depth, feats_valid, level,
             ref_pad, gather)
-        T, n_meas, H, chi2, iters[level] = _level_gn(
+        T, n_meas, H, chi2, it = _level_gn(
             cam, T, p_ref, ref_patch, jac, valid, level, n_iter, eps,
             cur_pad, robust=robust, gather=gather)
+        iters = _set_level(iters, level, it)
     n_tracked = torch.div(n_meas, PATCH_AREA, rounding_mode="floor") \
         .to(torch.int32)
     return AlignResult(T, n_tracked, H, chi2, iters)
@@ -298,9 +308,10 @@ def sparse_img_align_raw(ref_pyr, cur_pyr, cam, T_cur_ref_init: SE3,
             feats_valid, level)
         base, tiles, okf = _gather_tile_raw(
             cur_pyr[level], cam.world2cam(T.apply(p_ref)) * scale)
-        T, n_meas, H, chi2, iters[level] = _gn_loop(
+        T, n_meas, H, chi2, it = _gn_loop(
             tiles, base, p_ref, ref_patch, jac, valid, T, cam, scale, n_iter,
             eps, okf=okf)
+        iters = _set_level(iters, level, it)
     n_tracked = torch.div(n_meas, PATCH_AREA, rounding_mode="floor") \
         .to(torch.int32)
     return AlignResult(T, n_tracked, H, chi2, iters)

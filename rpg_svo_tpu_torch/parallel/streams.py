@@ -1,0 +1,89 @@
+"""Multi-stream (data-parallel) visual odometry.
+
+Port of ``rpg_svo_tpu/parallel/streams.py``: serving many camera streams
+at once, in two forms over a ``VOState`` with a leading stream axis.
+
+- ``vmapped_vo_step``: B streams in one step on one card,
+  ``torch.func.vmap`` over ``core/fused.vo_step``.  The step already runs
+  every branch and selects (it reads nothing back to the host), so the
+  batch keeps every stream's semantics; kernels K1 and K2 are custom ops
+  whose vmap rules launch once for all B streams (``ops/tiles.py``,
+  ``ops/align_kernel.py``), so a batched step issues about as many
+  launches as one stream's.
+- ``multistream_step`` / ``multistream_scan``: one stream per rank along
+  the mesh's ``dp`` axis, each rank stepping its own stream.  They issue
+  no collective: streams are independent, so nothing crosses a rank (the
+  counterpart of the JAX package's DCN-silence claim).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from rpg_svo_tpu_torch.config import Config
+from rpg_svo_tpu_torch.core import fused
+
+
+def stack_states(states) -> "fused.VOState":
+    """Stack B per-stream VOStates into one batched state."""
+    return pytree.tree_map(lambda *xs: torch.stack(xs), states[0],
+                           *states[1:])
+
+
+def index_state(batched, i: int):
+    """Stream i's VOState from a batched one."""
+    return pytree.tree_map(lambda x: x[i], batched)
+
+
+def vmapped_vo_step(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
+                    ncy: int, img_shape: Tuple[int, int]):
+    """One tracking step for B streams at once, on the states' device.
+
+    states: VOState with leading axis B; imgs (B, H, W).  Returns (states',
+    StepOut) with the same leading axis; the camera and config are
+    shared."""
+    def step(s, img):
+        return fused.vo_step(s, img, cam, cfg, ncx, ncy, img_shape)
+    return torch.func.vmap(step)(states, imgs)
+
+
+def _stack_outs(outs) -> "fused.StepOut":
+    return fused.StepOut(*[torch.stack(x) for x in zip(*outs)])
+
+
+def multistream_step(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
+                     ncx: int, ncy: int, img_shape: Tuple[int, int],
+                     axis: str = "dp"):
+    """One tracking step of this rank's streams along ``axis``.
+
+    states, imgs: this rank's rows of the stream axis (``shard_on(mesh,
+    ..., axis)``; one row when the axis has a rank per stream).  Each rank
+    runs the step on its own streams; no collective.  Returns (states',
+    StepOut) with the same leading axis."""
+    new, outs = [], []
+    for j in range(imgs.shape[0]):
+        s, o = fused.vo_step(index_state(states, j), imgs[j], cam, cfg, ncx,
+                             ncy, img_shape)
+        new.append(s)
+        outs.append(o)
+    return stack_states(new), _stack_outs(outs)
+
+
+def multistream_scan(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
+                     ncx: int, ncy: int, img_shape: Tuple[int, int],
+                     axis: str = "dp"):
+    """``vo_scan`` of this rank's streams along ``axis``: each stream
+    tracks its own image stack, with NO collective between streams.
+
+    states: this rank's rows; imgs (B_local, T, H, W).  Returns (states',
+    StepOut stacked (B_local, T, ...))."""
+    new, outs = [], []
+    for j in range(imgs.shape[0]):
+        s, o = fused.vo_scan(index_state(states, j), imgs[j], cam, cfg, ncx,
+                             ncy, img_shape)
+        new.append(s)
+        outs.append(_stack_outs(o))
+    return stack_states(new), _stack_outs(outs)

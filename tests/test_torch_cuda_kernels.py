@@ -294,3 +294,104 @@ def test_whole_step_on_card_matches_the_cpu_path(scene):
             < 1e-4
     assert tiles.tile_gather_kernel.launches == launches[0] + 8
     assert align_kernel.sparse_align_kernel.launches == launches[1] + 2
+
+
+# --- stream batches (torch.func.vmap, parallel/streams.py) -----------------
+
+def _frame_pads(ds, n: int):
+    return [build_padded_pyramid(ds.frame(i)[0], CFG.n_levels_total)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_batched_tile_kernel_bit_exact_per_stream(scene, B):
+    """K1 under vmap: one launch for B streams (each its own frame's stack
+    and requests), every stream bit-exact with the twin on its own."""
+    ds, state0 = scene
+    dev = state0.R.device
+    pads = _frame_pads(ds, B)
+    shapes = pads[0].shapes
+    rng = np.random.default_rng(B)
+    n = 192
+    lv = rng.integers(0, 3, (B, n)).astype(np.int32)
+    W = np.asarray([w for _, w in shapes])[lv]
+    H = np.asarray([h for h, _ in shapes])[lv]
+    x0 = torch.from_numpy(rng.integers(-20, W + 20).astype(np.int32)).to(dev)
+    y0 = torch.from_numpy(rng.integers(-20, H + 20).astype(np.int32)).to(dev)
+    lvt = torch.from_numpy(lv).to(dev)
+    stacks = torch.stack([p.stack for p in pads])
+    before = tiles.tile_gather_kernel.launches
+    tk, xk, yk = torch.func.vmap(lambda s, l, x, y: tiles.gather_tiles(
+        tiles.PaddedPyramid(s, shapes), l, x, y, 17, 17))(stacks, lvt, x0, y0)
+    assert tiles.tile_gather_kernel.launches == before + 1
+    for b in range(B):
+        tp, xp, yp = tiles.gather_tiles_plain(pads[b], lvt[b], x0[b], y0[b],
+                                              17, 17)
+        assert torch.equal(tk[b], tp) and torch.equal(xk[b], xp) \
+            and torch.equal(yk[b], yp), b
+    if B == 1:
+        # one stream: what the unbatched launch computes
+        tu, xu, yu = tiles.gather_tiles(pads[0], lvt[0], x0[0], y0[0], 17, 17)
+        assert torch.equal(tk[0], tu) and torch.equal(xk[0], xu) \
+            and torch.equal(yk[0], yu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_batched_sparse_align_kernel_matches_twin_per_stream(scene, B,
+                                                             preset):
+    """K2 under vmap: one launch, one block per stream; stream b aligns the
+    frame-0 features (rolled by b) against frame 3 + b from its own
+    perturbed pose, with the reference pyramid shared (stream stride 0):
+    each stream against sparse_img_align_plain on its own, at N = 128
+    (fast) and N = 256 (accurate)."""
+    ds, _ = scene
+    dev = torch.device("cuda")
+    cfg = bench_cfg(preset)
+    img0, depth0, T0 = ds.frame(0)
+    st = fused.seed_first_frame_with_depth(img0, T0.inverse(), depth0, ds.cam,
+                                           cfg, img_shape=SHAPE, device=dev)
+    N = st.feat_px.shape[0]
+    assert N == {"fast": 128, "accurate": 256}[preset]
+    pid = torch.clamp(st.feat_point, 0).long()
+    depth = torch.linalg.vector_norm(
+        SE3(st.R, st.t).apply(st.m.pt.pos[pid]), dim=-1)
+    rng = np.random.default_rng(B + N)
+    xi = torch.tensor(rng.normal(0, [3e-3] * 3 + [2e-3] * 3, (B, 6)),
+                      dtype=torch.float32, device=dev)
+    T_init = SE3.exp(xi)
+    curs = torch.stack([build_padded_pyramid(ds.frame(3 + b)[0],
+                                             cfg.n_levels_total).stack
+                        for b in range(B)])
+    roll = lambda a: torch.stack([torch.roll(a, b, 0)  # noqa: E731
+                                  for b in range(B)])
+    feats = (roll(st.feat_px), roll(st.feat_f), roll(depth),
+             roll(st.feat_valid))
+    shapes = st.pad.shapes
+    lv = (cfg.klt_max_level, cfg.klt_min_level, cfg.img_align_n_iter,
+          cfg.img_align_eps)
+
+    def one(cur, R, t, px, f, d, v):
+        return align_kernel.sparse_align_kernel(
+            st.pad, tiles.PaddedPyramid(cur, shapes), ds.cam, SE3(R, t), px,
+            f, d, v, *lv)
+    before = align_kernel.sparse_align_kernel.launches
+    Tk, nk, Hk, ck, ik = torch.func.vmap(one)(curs, T_init.R, T_init.t,
+                                              *feats)
+    assert align_kernel.sparse_align_kernel.launches == before + 1
+    for b in range(B):
+        rp = sparse_img_align_plain(
+            st.pad, tiles.PaddedPyramid(curs[b], shapes), ds.cam,
+            SE3(T_init.R[b], T_init.t[b]), *[a[b] for a in feats], *lv,
+            gather=tiles.gather_tiles_plain)
+        _assert_twin(SE3(Tk.R[b], Tk.t[b]), nk[b], ik[b], rp)
+        assert torch.isfinite(Hk[b]).all() and bool(torch.isfinite(ck[b]))
+    if B == 1:
+        # one stream: what the unbatched launch computes, bit for bit
+        Tu, nu, Hu, cu, iu = one(curs[0], T_init.R[0], T_init.t[0],
+                                 *[a[0] for a in feats])
+        assert torch.equal(Tk.R[0], Tu.R) and torch.equal(Tk.t[0], Tu.t)
+        assert torch.equal(Hk[0], Hu) and torch.equal(ik[0], iu)
+        assert int(nk[0]) == int(nu)

@@ -388,15 +388,14 @@ def test_se3_and_triangulation_surface_matches_jax():
 
 
 # --- the completeness guard ------------------------------------------------
-# Not ported on purpose: parallel/ (the next slice), the Pallas files (the
-# kernels K1 and K2 are csrc/ with ops/tiles.py and ops/align_kernel.py),
-# schur.expand_dx (only parallel/ba.py calls it), the TPU one-hot helpers
-# and the JAX pytree methods.
+# Not ported on purpose: the Pallas files (the kernels K1 and K2 are csrc/
+# with ops/tiles.py and ops/align_kernel.py), the TPU one-hot helpers and
+# the JAX pytree methods.
 NOT_PORTED = {
-    "ba/schur.py": {"expand_dx", "obs_cam_onehot", "var_onehot"},
+    "ba/schur.py": {"obs_cam_onehot", "var_onehot"},
     "geometry/linalg.py": {"onehot_gather_rows"},
 }
-NOT_PORTED_FILES = ("parallel/", "ops/pallas_align.py", "ops/pallas_tiles.py")
+NOT_PORTED_FILES = ("ops/pallas_align.py", "ops/pallas_tiles.py")
 PYTREE_METHODS = {"tree_flatten", "tree_unflatten"}
 
 
