@@ -98,9 +98,10 @@ one, or without the port beside it.  Phases, each fatal on failure:
    select_top_k (positions to 1e-3 px, discrete results equal); the
    dashboard and the plots do not run here (no matplotlib on the card's
    machine);
-20. (run last, after phases 21 and 22) one JSON line of kernel
+20. (run last, after phases 21-24) one JSON line of kernel
    measurements (launches per frame on every path, the batched launches
-   of phase 21), the card's line, and the result;
+   of phase 21, the donated steps of phase 23), the card's line, and the
+   result;
 21. camera streams in one step: ``parallel.streams.vmapped_vo_step``
    (fast, 752x480) over 4 streams, stream b from phase 5's state after
    frame 10 b, each tracking its next 20 frames: no failed frame, each
@@ -116,7 +117,25 @@ one, or without the port beside it.  Phases, each fatal on failure:
    ``sharded_pose_optimize``, ``sharded_seed_update``,
    ``distributed_ba_solve``, ``multistream_step`` and 3 frames of
    ``vo_step_mesh`` to their single-device counterparts on the card
-   (1e-6); NCCL across GPUs is not run (one card).
+   (1e-6); NCCL across GPUs is not run (one card);
+23. the donated step ``vo_step_donated`` in both presets, from a clone of
+   phase 5's state before its first keyframe, through that keyframe and 5
+   frames past it: within 1e-5 m of phase 5 at every frame, the same
+   keyframe, 4 K1 and 1 K2 launches and 0 host syncs per frame, every pool
+   tensor's data pointer unchanged, ``vo_scan_donated`` over the window
+   within 1e-5 m of the step loop; then the keyframe step and the next by
+   ``vo_step`` and by ``vo_step_donated`` in turns: host ms, peak device
+   memory above the input, and device ops and device ms of 5 profiles
+   each way in turns (median and range; a difference whose ranges overlap
+   is printed as unresolved);
+24. stage attribution: the fast step under each code-level stub of
+   tools_stage_timing.py (``cfg.ablate``: full, no_align, no_reproject,
+   no_pose, no_struct, no_df, no_kf, only_pyr) through
+   ``vo_step_donated``, each from a clone of phase 5's state after frame
+   10, in 3 interleaved rounds of 3 warm-up and 10 timed steps: host ms
+   per step (the median round), device ms and device ops of one step, K1
+   and K2 launches, failed and keyframe counts, each beside full's; finite
+   poses, and no K2 launch where "align" is stubbed.
 """
 
 from __future__ import annotations
@@ -242,6 +261,21 @@ STREAM_BS = (1, 2, 4, 8)       # the batch sizes timed
 STREAM_WARM = 3                # steps at each B before the timed ones
 STREAM_TIMED, STREAM_ROUNDS = 10, 3   # steps per timed block, rounds
 MESH_FRAMES = 3                # phase 22: vo_step_mesh frames
+DONATED_PAST = 5               # phase 23: frames past the first keyframe
+DONATED_TOL_M = 1e-5           # against phase 5 (local BA sums by atomics)
+DONATED_TIMED = 3              # phase 23: timed calls of each step each way
+DONATED_PROFILES = 5           # phase 23: device profiles of each, in turns
+# phase 24: tools_stage_timing.py's code-level stubs (cfg.ablate)
+STAGE_VARIANTS = {"full": (), "no_align": ("align",),
+                  "no_reproject": ("reproject",), "no_pose": ("pose",),
+                  "no_struct": ("struct",), "no_df": ("df",),
+                  "no_kf": ("kf",),
+                  "only_pyr": ("align", "reproject", "pose", "struct", "df",
+                               "kf")}
+STAGE_FROM = 10                # from the fast run's state after this frame
+STAGE_ROUNDS = 3
+STAGE_WARM = 3
+STAGE_TIMED = 10
 MESH_TOL = 1e-6                # phase 22: mesh programs against one device
 MESH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -466,6 +500,21 @@ def _device_profile(torch, fn):
           for k, s in (("tile_gather", "tile_gather_kernel"),
                        ("sparse_align", "sparse_align_kernel"))}
     return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3, by, prof
+
+
+def _device_totals(torch, fn):
+    """(device ops, device ms) of one call of fn, as ``_device_profile``
+    counts them, from the profiler's raw events: building its event tree
+    takes seconds for a step's ~9k kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.duration_ns() for e in ev) / 1e6
 
 
 def _host_syncs(torch, fn):
@@ -1365,6 +1414,238 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
             "seconds": seconds}
 
 
+def _clone_state(state):
+    """A copy of a VOState that a donated step may consume."""
+    import torch
+    import torch.utils._pytree as pytree
+    return pytree.tree_map(torch.clone, state)
+
+
+def _pool_ptrs(state) -> list:
+    import torch.utils._pytree as pytree
+    return [x.data_ptr() for x in pytree.tree_leaves(state.m)]
+
+
+def _step_figures(torch, step) -> dict:
+    """Host ms of DONATED_TIMED calls (each ending in a synchronize) and
+    the most device memory any of them held above what was allocated
+    before it, of the call ``step()`` returns (``step`` makes that call's
+    input, a clone for a donated step, outside what is timed)."""
+    times, peak = [], 0.0
+    for _ in range(DONATED_TIMED):
+        fn = step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, (torch.cuda.max_memory_allocated() - base) / 1e6)
+    return {"host_ms_calls": times, "peak_mb_above_input": peak}
+
+
+def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
+    """Phase 23: the donated step (``vo_step_donated``) in both presets
+    from a clone of phase 5's state before its first keyframe, through the
+    keyframe and DONATED_PAST frames past it, against phase 5's run; then
+    ``vo_scan_donated`` over the same window; then the keyframe step and
+    the next, each by ``vo_step`` and by ``vo_step_donated`` (host ms, peak
+    memory, and device ops and device ms of DONATED_PROFILES profiles each
+    way, in turns; a device-ms difference counts as resolved only where the
+    two ways' profiles do not overlap)."""
+    import torch
+    from rpg_svo_tpu_torch.core import fused
+    ncx, ncy = grid
+    t_phase = time.perf_counter()
+    res = {}
+    for preset, (s, snap, outs, k) in starts.items():
+        cfg = cfgs[preset]
+        frames = range(s + 1, k + DONATED_PAST + 1)
+        st = _clone_state(snap)
+        ptrs = _pool_ptrs(st)
+        d_outs, launches, syncs, same_storage = [], [], [], True
+        for j in frames:
+            _reset_counts()
+            (st, out), sy = _host_syncs(torch, functools.partial(
+                fused.vo_step_donated, st, imgs[j - 1], cam, cfg, ncx, ncy,
+                shape))
+            launches.append(_read_counts())
+            syncs.append(len(sy))
+            same_storage &= _pool_ptrs(st) == ptrs
+            d_outs.append(out)
+        pos = torch.stack([o.t_wc for o in d_outs]).cpu().numpy()
+        ref = np.stack([outs[j - 1].t_wc.cpu().numpy() for j in frames])
+        dt = float(np.abs(pos - ref).max())
+        kfs = [j for j, o in zip(frames, d_outs) if bool(o.is_keyframe)]
+        kfs_ref = [j for j in frames if bool(outs[j - 1].is_keyframe)]
+        _, s_outs = fused.vo_scan_donated(
+            _clone_state(snap), imgs[s:frames[-1]], cam, cfg, ncx, ncy, shape)
+        scan_dt = float(max(torch.abs(a.t_wc - b.t_wc).max()
+                            for a, b in zip(s_outs, d_outs)))
+        scan_kfs = [j for j, o in zip(frames, s_outs) if bool(o.is_keyframe)]
+        want = {"tile_gather": K1_PER_FRAME, "sparse_align": 1}
+        print(f"# donated {preset}: frames {s + 1}-{frames[-1]} from a clone "
+              f"of the state after frame {s}: max |dt_wc| against phase 5 "
+              f"{dt:.3e} m (tol {DONATED_TOL_M}); keyframes {kfs} (phase 5: "
+              f"{kfs_ref}); launches per frame all {want}: "
+              f"{all(x == want for x in launches)}; host syncs "
+              f"{sum(syncs)}; pool data pointers unchanged: {same_storage}; "
+              f"vo_scan_donated against the step loop: max |dt_wc| "
+              f"{scan_dt:.3e} m, keyframes {scan_kfs}", flush=True)
+        assert np.isfinite(pos).all() and dt <= DONATED_TOL_M, (preset, dt)
+        assert kfs == kfs_ref and kfs and kfs[0] == k, (preset, kfs, kfs_ref)
+        assert all(x == want for x in launches), (preset, launches)
+        assert not any(syncs), (preset, syncs)
+        assert same_storage, f"{preset}: a donated pool moved"
+        assert scan_dt <= DONATED_TOL_M and scan_kfs == kfs, (preset, scan_dt)
+
+        # the keyframe step and the next, each way, interleaved
+        st = snap
+        for j in range(s + 1, k):
+            st, _ = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
+        steps = {}
+        for label, j in (("keyframe", k), ("other", k + 1)):
+            def plain(st=st, j=j):
+                return functools.partial(fused.vo_step, st, imgs[j - 1], cam,
+                                         cfg, ncx, ncy, shape)
+
+            def donated(st=st, j=j):
+                return functools.partial(fused.vo_step_donated,
+                                         _clone_state(st), imgs[j - 1], cam,
+                                         cfg, ncx, ncy, shape)
+            ways = {"vo_step": plain, "vo_step_donated": donated}
+            # in turns: plain, donated, donated, plain
+            runs = [(way, _step_figures(torch, ways[way])) for way in
+                    ("vo_step", "vo_step_donated", "vo_step_donated",
+                     "vo_step")]
+            profs = {way: [] for way in ways}
+            for r in range(DONATED_PROFILES):
+                for way in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+                    profs[way].append(_device_totals(torch, ways[way]()))
+            fig = {}
+            for way in ways:
+                mine = [x for w, x in runs if w == way]
+                calls = [t for x in mine for t in x["host_ms_calls"]]
+                ms = [p[1] for p in profs[way]]
+                fig[way] = {
+                    "host_ms": statistics.median(calls),
+                    "host_ms_calls": calls,
+                    "peak_mb_above_input": max(
+                        x["peak_mb_above_input"] for x in mine),
+                    "device_ops": [p[0] for p in profs[way]],
+                    "device_ms": statistics.median(ms),
+                    "device_ms_profiles": ms}
+            f, d = fig["vo_step"], fig["vo_step_donated"]
+            fm, dm = f["device_ms_profiles"], d["device_ms_profiles"]
+            resolved = max(dm) < min(fm) or max(fm) < min(dm)
+            steps[label] = dict(fig, frame=j, device_ms_resolved=resolved)
+            print(f"# donated {preset} {label} step (frame {j}), vo_step / "
+                  f"vo_step_donated: host {f['host_ms']:.2f} / "
+                  f"{d['host_ms']:.2f} ms (median of {len(f['host_ms_calls'])}"
+                  f" calls each), device ops {f['device_ops']} / "
+                  f"{d['device_ops']}, device {f['device_ms']:.3f} "
+                  f"[{min(fm):.3f}-{max(fm):.3f}] / {d['device_ms']:.3f} "
+                  f"[{min(dm):.3f}-{max(dm):.3f}] ms (median [range] of "
+                  f"{DONATED_PROFILES} profiles each, in turns; difference "
+                  f"{d['device_ms'] - f['device_ms']:+.3f} ms, "
+                  f"{'resolved' if resolved else 'unresolved: the ranges overlap'}"
+                  f"), peak memory above the input "
+                  f"{f['peak_mb_above_input']:.1f} / "
+                  f"{d['peak_mb_above_input']:.1f} MB", flush=True)
+            st = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)[0]
+        res[preset] = {"frames": [s + 1, frames[-1]], "max_dt_m": dt,
+                       "keyframes": kfs, "launches": {
+                           key: sum(x[key] for x in launches)
+                           for key in want},
+                       "n_frames": len(frames), "host_syncs": sum(syncs),
+                       "pools_kept_storage": same_storage,
+                       "scan_max_dt_m": scan_dt, "steps": steps}
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def _stage_phase(snap, imgs, cam, cfg, grid, shape) -> dict:
+    """Phase 24: the eight code-level stubs of tools_stage_timing.py
+    (``cfg.ablate``), fast, each from a clone of the state after frame
+    STAGE_FROM through ``vo_step_donated``: STAGE_ROUNDS interleaved
+    rounds of STAGE_WARM warm-up and STAGE_TIMED timed steps; host ms per
+    step, launches, failed and keyframe counts of the timed steps; device
+    ops and device ms of one more step."""
+    import torch
+    from rpg_svo_tpu_torch.core import fused
+    ncx, ncy = grid
+    t_phase = time.perf_counter()
+    names = tuple(STAGE_VARIANTS)
+    rounds = {v: [] for v in names}
+    counted = {v: {"tile_gather": 0, "sparse_align": 0, "failed": 0,
+                   "keyframes": 0} for v in names}
+    prof = {}
+    for r in range(STAGE_ROUNDS):
+        for v in names[r % len(names):] + names[:r % len(names)]:
+            c = cfg.replace(ablate=STAGE_VARIANTS[v])
+            st = _clone_state(snap)
+            j = STAGE_FROM
+            for _ in range(STAGE_WARM):
+                st, _ = fused.vo_step_donated(st, imgs[j], cam, c, ncx, ncy,
+                                              shape)
+                j += 1
+            _reset_counts()
+            t0 = time.perf_counter()
+            outs = []
+            for _ in range(STAGE_TIMED):
+                st, o = fused.vo_step_donated(st, imgs[j], cam, c, ncx, ncy,
+                                              shape)
+                outs.append(o)
+                j += 1
+            torch.cuda.synchronize()
+            rounds[v].append((time.perf_counter() - t0) / STAGE_TIMED * 1e3)
+            for key, n in _read_counts().items():
+                counted[v][key] += n
+            pos = torch.stack([o.t_wc for o in outs]).cpu().numpy()
+            assert np.isfinite(pos).all(), (v, "a pose is not finite")
+            counted[v]["failed"] += sum(bool(o.failed) for o in outs)
+            counted[v]["keyframes"] += sum(bool(o.is_keyframe) for o in outs)
+            if v not in prof:
+                ops, dms, kms, _ = _device_profile(
+                    torch, functools.partial(fused.vo_step_donated, st,
+                                             imgs[j], cam, c, ncx, ncy,
+                                             shape))
+                prof[v] = (ops, dms, kms)
+    n_steps = STAGE_ROUNDS * STAGE_TIMED
+    table = {}
+    for v in names:
+        ops, dms, kms = prof[v]
+        table[v] = {"ablate": list(STAGE_VARIANTS[v]),
+                    "host_ms": float(np.median(rounds[v])),
+                    "host_ms_rounds": rounds[v], "device_ops": ops,
+                    "device_ms": dms, "kernel_device_ms": kms,
+                    "launches_per_step": {
+                        k: counted[v][k] / n_steps
+                        for k in ("tile_gather", "sparse_align")},
+                    "failed": counted[v]["failed"],
+                    "keyframes": counted[v]["keyframes"], "steps": n_steps}
+    full = table["full"]
+    for v in names:
+        t = table[v]
+        t["minus_full"] = {k: t[k] - full[k] for k in
+                           ("host_ms", "device_ops", "device_ms")}
+        print(f"# stages {v:13s} host {t['host_ms']:7.2f} ms "
+              f"({', '.join(f'{x:.1f}' for x in t['host_ms_rounds'])}) "
+              f"[{t['minus_full']['host_ms']:+.2f}], device "
+              f"{t['device_ms']:.3f} ms [{t['minus_full']['device_ms']:+.3f}]"
+              f", {t['device_ops']} ops [{t['minus_full']['device_ops']:+d}]"
+              f"; K1, K2 per step {t['launches_per_step']['tile_gather']:.2f},"
+              f" {t['launches_per_step']['sparse_align']:.2f}; failed "
+              f"{t['failed']}, keyframes {t['keyframes']} of {n_steps}",
+              flush=True)
+        if "align" in STAGE_VARIANTS[v]:
+            assert counted[v]["sparse_align"] == 0, (v, counted[v])
+    return {"from_frame": STAGE_FROM, "rounds": STAGE_ROUNDS,
+            "warm": STAGE_WARM, "timed": STAGE_TIMED, "variants": table,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def _mesh_world() -> int:
     """Phase 22, run in its own process: a process group of one rank on
     the card (NCCL) and each mesh program against its single-device
@@ -1885,7 +2166,17 @@ def main() -> int:
                           STREAM_EVERY)
     fast, fast_outs, fast_snaps = run_path("fast")
     stream_snaps = {i: fast_snaps[i] for i in stream_starts}
-    accurate, _, acc_snaps = run_path("accurate")
+    stage_snap = fast_snaps[STAGE_FROM]
+    accurate, acc_outs, acc_snaps = run_path("accurate")
+    # phase 23's starts: the state before each preset's first keyframe
+    donated_starts = {}
+    for p, sm, outs_p, snaps_p in (("fast", fast, fast_outs, fast_snaps),
+                                   ("accurate", accurate, acc_outs,
+                                    acc_snaps)):
+        k = sm["keyframes"][0]
+        assert k + DONATED_PAST <= PRESET_FRAMES[p], (p, k)
+        s = max(i for i in snaps_p if i < k)
+        donated_starts[p] = (s, snaps_p[s], outs_p, k)
     del acc_snaps
 
     # --- 6. the CPU path over the window holding the first keyframe --------
@@ -2180,7 +2471,20 @@ def main() -> int:
     print(f"# phases 21-22 took {streams_b['seconds']:.1f} s and "
           f"{mesh['phase_seconds']:.1f} s", flush=True)
 
-    # --- 20. the lines (after phases 21 and 22) ------------------------------
+    # --- 23. the donated step, both presets ----------------------------------
+    phase(23)
+    donated = _donated_phase(donated_starts, imgs, cam, cfgs, (ncx, ncy),
+                             shape)
+    del donated_starts
+
+    # --- 24. stage attribution: the step under each code-level stub --------
+    phase(24)
+    stages = _stage_phase(stage_snap, imgs, cam, cfgs["fast"], (ncx, ncy),
+                          shape)
+    print(f"# phases 23-24 took {donated['seconds']:.1f} s and "
+          f"{stages['seconds']:.1f} s", flush=True)
+
+    # --- 20. the lines (after phases 21-24) ----------------------------------
     phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
@@ -2203,7 +2507,11 @@ def main() -> int:
              "live": (live["launches"], live["frames"]),
              "surface_align_padded": (surface["launches"]["align_padded"], 1),
              "surface_epipolar_align_1d":
-                 (surface["launches"]["epipolar_align_1d"], 1)}
+                 (surface["launches"]["epipolar_align_1d"], 1),
+             "fast_donated": (donated["fast"]["launches"],
+                              donated["fast"]["n_frames"]),
+             "accurate_donated": (donated["accurate"]["launches"],
+                                  donated["accurate"]["n_frames"])}
     # batched steps: launches per batched step, whatever the streams
     paths.update({f"streams_vmapped_b{B}": (r["launches"], r["steps"])
                   for B, r in streams_b["by_b"].items()})
@@ -2273,8 +2581,8 @@ def main() -> int:
                "handler_atan": handler_atan, "handler_omni": handler_omni,
                "driver_blender": driver_blender, "driver_euroc": driver_euroc,
                "checkpoint": ckpt, "live": live, "surface": surface,
-               "streams": streams_b, "mesh": mesh,
-               "phase_start_s": phase_s,
+               "streams": streams_b, "mesh": mesh, "donated": donated,
+               "stages": stages, "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     # the whole summary also as a file: the printed line outgrows the tail
     # of the output that a remote run returns

@@ -141,11 +141,11 @@ def init_seeds_from_detection(m: MapState, kf_slot: torch.Tensor, det: dict,
                               cam, depth_mean: torch.Tensor,
                               depth_min: torch.Tensor,
                               min_score: float = 20.0,
-                              enable=True) -> MapState:
+                              enable=True, inplace: bool = False) -> MapState:
     """One seed per good detection (score above min_score) in the first
     free seed slots; ``enable`` (a 0-d bool tensor or a bool) masks the
     whole call, the keyframe counter included.  Only allocated rows are
-    written."""
+    written, into the seed pool itself with ``inplace``."""
     dev = det["px"].device
     enable = torch.as_tensor(enable, device=dev)
     good = det["valid"] & (det["score"] > min_score) & enable
@@ -165,7 +165,7 @@ def init_seeds_from_detection(m: MapState, kf_slot: torch.Tensor, det: dict,
     zi = torch.zeros((n,), dtype=I32, device=dev)
 
     def put(arr, val):
-        return set_rows(arr, slots, val.to(arr.dtype), ok)
+        return set_rows(arr, slots, val.to(arr.dtype), ok, inplace)
 
     seed = seed._replace(
         active=put(seed.active, torch.ones_like(good)),
@@ -244,10 +244,12 @@ def select_seed_update(cond: torch.Tensor, upd: SeedFieldUpdate,
                                                       other.stats)]))
 
 
-def apply_seed_update(m: MapState, upd: SeedFieldUpdate) -> MapState:
+def apply_seed_update(m: MapState, upd: SeedFieldUpdate,
+                      inplace: bool = False) -> MapState:
     """Write the seed fields back and allocate a CANDIDATE point for each
     converged seed, at most ALLOC_K per call in seed order; converged seeds
-    past the cap stay alive and convert later."""
+    past the cap stay alive and convert later.  With ``inplace`` the
+    points are allocated in the point pool itself."""
     seed = m.seed
     S = upd.converged.shape[0]
     order, conv_c = mask_compact(upd.converged, ALLOC_K)
@@ -255,7 +257,8 @@ def apply_seed_update(m: MapState, upd: SeedFieldUpdate) -> MapState:
         m.pt, upd.p_w[order], TYPE_CANDIDATE, seed.kf_slot[order],
         seed.px[order], seed.f[order], seed.level[order], conv_c,
         orig_type=seed.ftype[order], orig_grad=seed.grad[order],
-        orig_tile=seed.tile[order], orig_tile_xy0=seed.tile_xy0[order])
+        orig_tile=seed.tile[order], orig_tile_xy0=seed.tile_xy0[order],
+        inplace=inplace)
     allocated = set_rows(torch.zeros((S,), dtype=torch.bool,
                                      device=conv_c.device),
                          order, conv_c, conv_c)

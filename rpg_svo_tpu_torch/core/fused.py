@@ -16,8 +16,16 @@ JAX ``_vo_step`` on the card,
    and candidate promotion, local BA (accurate preset), seed detection
    with tiles (K1) and seed init, and the map cap;
 
-and the stage transition.  ``cfg.ablate`` may stub "kf" (no keyframe is
-ever taken) and "df" (no seed update), as in JAX.
+and the stage transition.  ``cfg.ablate`` stubs stages out as the JAX
+step does, for attributing a step's time to its stages by differencing:
+"align" (the pose of the reference frame, no K2 launch), "reproject" (the
+reference features as matches, no scrub), "pose" (the aligned pose kept),
+"struct", "kf" (no keyframe is ever taken) and "df" (no seed update).
+
+``vo_step`` is purely functional; ``vo_step_donated`` (the JAX package's
+donated step, its throughput path) consumes its input state and writes the
+map pools in place, so that no step copies a pool; ``vo_scan`` and
+``vo_scan_donated`` loop over them.
 
 The JAX step chooses branches with ``lax.cond``; here every branch runs
 and its result is kept or dropped with ``torch.where`` or a mask, so
@@ -34,20 +42,21 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
-from rpg_svo_tpu_torch import resolve_device
+from rpg_svo_tpu_torch import is_batched, resolve_device
 from rpg_svo_tpu_torch.config import Config
 from rpg_svo_tpu_torch.core import depth_filter as df
 from rpg_svo_tpu_torch.core import map as svomap
 from rpg_svo_tpu_torch.core.frame import scene_depth
 from rpg_svo_tpu_torch.core.local_ba import run_local_ba
 from rpg_svo_tpu_torch.core.map import MapState
-from rpg_svo_tpu_torch.core.reprojector import reproject_map
+from rpg_svo_tpu_torch.core.reprojector import ReprojectResult, reproject_map
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.ops.detector import cell_index, detect_features, grid_dims
 from rpg_svo_tpu_torch.ops.patches import extract_tiles
 from rpg_svo_tpu_torch.ops.point_opt import optimize_points
-from rpg_svo_tpu_torch.ops.pose_opt import optimize_pose
+from rpg_svo_tpu_torch.ops.pose_opt import PoseOptResult, optimize_pose
 from rpg_svo_tpu_torch.ops.pyramid import build_padded_pyramid, pyramid_shapes
 from rpg_svo_tpu_torch.ops.sparse_align import sparse_img_align
 from rpg_svo_tpu_torch.ops.tiles import PaddedPyramid, padded_layout
@@ -55,7 +64,7 @@ from rpg_svo_tpu_torch.ops.tiles import PaddedPyramid, padded_layout
 STAGE_DEFAULT = 0
 STAGE_RELOC = 1
 # the stages cfg.ablate may stub out
-ABLATABLE = frozenset({"kf", "df"})
+ABLATABLE = frozenset({"align", "reproject", "pose", "struct", "kf", "df"})
 
 
 class VOState(NamedTuple):
@@ -97,10 +106,11 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def _structure_opt_fused(m: MapState, T: SE3, frame_id: torch.Tensor,
                          feat_point: torch.Tensor, feat_valid: torch.Tensor,
-                         n_opt: int, n_iter: int,
-                         enabled: torch.Tensor) -> MapState:
+                         n_opt: int, n_iter: int, enabled: torch.Tensor,
+                         inplace: bool = False) -> MapState:
     """optimizeStructure (frame_handler_base.cpp:178-196) with an enable
-    mask: refine the n_opt longest-unoptimized points of this frame."""
+    mask: refine the n_opt longest-unoptimized points of this frame (in
+    the point pool itself with ``inplace``)."""
     pt = m.pt
     P = pt.pos.shape[0]
     K = m.kf.R.shape[0]
@@ -126,15 +136,16 @@ def _structure_opt_fused(m: MapState, T: SE3, frame_id: torch.Tensor,
                                n_iter=n_iter)
     # only the refined rows are written: a padded row (clipped to point 0)
     # must not overwrite a real selection of point 0
-    pos = svomap.set_rows(pt.pos, sel, p_new, can)
+    pos = svomap.set_rows(pt.pos, sel, p_new, can, inplace)
     last = svomap.set_rows(pt.last_optim, sel,
-                           frame_id.expand(sel.shape[0]), can)
+                           frame_id.expand(sel.shape[0]), can, inplace)
     return m._replace(pt=pt._replace(pos=pos, last_optim=last))
 
 
 def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
                      feat_point, feat_valid, is_kf, depth_mean, depth_min,
-                     cam, cfg: Config, ncx: int, ncy: int) -> MapState:
+                     cam, cfg: Config, ncx: int, ncy: int,
+                     inplace: bool) -> MapState:
     """Keyframe insertion with creation-time feature tiles, observation
     binding and candidate promotion, local BA (loba_num_iter > 0), seed
     detection in the unoccupied cells and seed init, and the map cap.
@@ -155,13 +166,14 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
         svomap.pad_rows(kf_depth, C, 1.0), feat_type=svomap.pad_rows(rep.feat_type, C, 0),
         feat_grad=svomap.pad_rows(rep.feat_grad, C, 0),
         feat_tile=svomap.pad_rows(ftile, C, 0),
-        feat_tile_xy0=svomap.pad_rows(fxy0, C, -1), enable=is_kf)
+        feat_tile_xy0=svomap.pad_rows(fxy0, C, -1), enable=is_kf,
+        inplace=inplace)
 
     # observation binding; bound candidates become UNKNOWN
     bind = feat_valid & (feat_point >= 0) & is_kf
     pt = svomap.add_point_observations(
         m.pt, feat_point, slot.expand(F),
-        torch.arange(F, dtype=torch.int32, device=dev), bind)
+        torch.arange(F, dtype=torch.int32, device=dev), bind, inplace)
     hit = svomap.set_rows(torch.zeros((P,), dtype=torch.bool, device=dev),
                           pid, bind, bind)
     ptype = torch.where(hit & (pt.ptype == svomap.TYPE_CANDIDATE),
@@ -170,18 +182,12 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
     m = m._replace(pt=pt._replace(ptype=ptype))
 
     if cfg.loba_num_iter > 0:
-        mb = run_local_ba(m, torch.clamp(slot, min=0),
-                          cfg.loba_robust_huber_width, cfg.loba_thresh,
-                          cam.fx, n_iter=cfg.loba_num_iter,
-                          core_n_kfs=cfg.core_n_kfs,
-                          shard_axis=cfg.shard_axis)
-        keep = lambda a, b: torch.where(is_kf, a, b)  # noqa: E731
-        m = m._replace(
-            kf=m.kf._replace(R=keep(mb.kf.R, m.kf.R), t=keep(mb.kf.t, m.kf.t)),
-            pt=m.pt._replace(pos=keep(mb.pt.pos, m.pt.pos),
-                             ptype=keep(mb.pt.ptype, m.pt.ptype),
-                             obs_valid=keep(mb.pt.obs_valid,
-                                            m.pt.obs_valid)))
+        m = run_local_ba(m, torch.clamp(slot, min=0),
+                         cfg.loba_robust_huber_width, cfg.loba_thresh,
+                         cam.fx, n_iter=cfg.loba_num_iter,
+                         core_n_kfs=cfg.core_n_kfs,
+                         shard_axis=cfg.shard_axis, enable=is_kf,
+                         inplace=inplace)
 
     # seeds in the cells this frame's features leave free, compacted to
     # the per-keyframe budget before their tiles are cut
@@ -199,7 +205,8 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
         m, slot, {"px": dpx, "score": det["score"][sel], "level": dlevel,
                   "valid": ok, "tile": dtile, "tile_xy0": dxy0},
         cam, depth_mean, 0.5 * depth_min,
-        min_score=cfg.triang_min_corner_score, enable=is_kf)
+        min_score=cfg.triang_min_corner_score, enable=is_kf,
+        inplace=inplace)
 
     # map cap: drop the furthest keyframe, never the one just added
     if cfg.max_n_kfs > 2:
@@ -211,12 +218,11 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
     return m
 
 
-def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
-            ncx: int, ncy: int,
-            img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
-    """One tracking and mapping step (DEFAULT or RELOCALIZING stage) on the
-    state's device; returns (new state, outputs).  Reads nothing back to
-    the host."""
+def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
+             ncx: int, ncy: int, img_shape: Tuple[int, int],
+             inplace: bool) -> Tuple[VOState, StepOut]:
+    """The step of ``vo_step`` and ``vo_step_donated``; ``inplace`` writes
+    the pools' rows in place."""
     abl = frozenset(cfg.ablate)
     if abl - ABLATABLE:
         raise NotImplementedError(
@@ -256,42 +262,65 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     ref_ok = ref_ok & (m.pt.ptype[pid_safe] != svomap.TYPE_DELETED)
 
     # --- 2. sparse image alignment
-    ident = SE3.identity(device=dev)
-    align = sparse_img_align(
-        ref_pad, pad, cam, ident, ref_px, ref_f, depth, ref_ok,
-        max_level=cfg.klt_max_level, min_level=cfg.klt_min_level,
-        n_iter=cfg.img_align_n_iter, eps=cfg.img_align_eps,
-        robust=cfg.img_align_robust)
-    T_cur = align.T_cur_ref * T_ref
-    reloc_fail = reloc & (align.n_tracked <= 30)
+    if "align" in abl:
+        T_cur = T_ref
+        reloc_fail = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        align = sparse_img_align(
+            ref_pad, pad, cam, SE3.identity(device=dev), ref_px, ref_f,
+            depth, ref_ok, max_level=cfg.klt_max_level,
+            min_level=cfg.klt_min_level, n_iter=cfg.img_align_n_iter,
+            eps=cfg.img_align_eps, robust=cfg.img_align_robust)
+        T_cur = align.T_cur_ref * T_ref
+        reloc_fail = reloc & (align.n_tracked <= 30)
 
     # --- 3. reprojection + matching
-    ptype_before = m.pt.ptype
-    pt2, rep = reproject_map(m, T_cur, cam, cfg.grid_size, ncx, ncy,
-                             max_level=cfg.n_pyr_levels - 1, cur_pad=pad,
-                             max_fts=F,
-                             attempt_factor=cfg.reproj_attempt_factor)
-    m = m._replace(pt=pt2)
-    # scrub after any deletion since the last scrub (core/map.py invariant)
-    need_scrub = state.scrub_pending | torch.any(pt2.ptype != ptype_before)
-    ms = svomap.scrub_dead_references(m)
-    m = m._replace(
-        kf=m.kf._replace(
-            feat_valid=torch.where(need_scrub, ms.kf.feat_valid,
-                                   m.kf.feat_valid),
-            feat_point=torch.where(need_scrub, ms.kf.feat_point,
-                                   m.kf.feat_point)),
-        pt=m.pt._replace(obs_valid=torch.where(need_scrub, ms.pt.obs_valid,
-                                               m.pt.obs_valid)))
+    if "reproject" in abl:
+        # the reference features stand for the matches, as in the JAX stub
+        zi = torch.zeros((F,), dtype=torch.int32, device=dev)
+        rep = ReprojectResult(
+            feat_px=svomap.pad_rows(ref_px[:F], F, 0), feat_level=zi,
+            feat_point=svomap.pad_rows(ref_pid[:F], F, -1),
+            feat_valid=svomap.pad_rows(ref_ok[:F], F, False), feat_type=zi,
+            feat_grad=torch.zeros((F, 2), device=dev),
+            n_matches=torch.sum(ref_ok).to(torch.int32),
+            n_trials=torch.zeros((), dtype=torch.int32, device=dev))
+    else:
+        ptype_before = m.pt.ptype
+        pt2, rep = reproject_map(m, T_cur, cam, cfg.grid_size, ncx, ncy,
+                                 max_level=cfg.n_pyr_levels - 1, cur_pad=pad,
+                                 max_fts=F,
+                                 attempt_factor=cfg.reproj_attempt_factor,
+                                 inplace=inplace)
+        m = m._replace(pt=pt2)
+        # scrub after any deletion since the last scrub (core/map.py
+        # invariant)
+        need_scrub = state.scrub_pending | torch.any(pt2.ptype != ptype_before)
+        ms = svomap.scrub_dead_references(m)
+        m = m._replace(
+            kf=m.kf._replace(
+                feat_valid=torch.where(need_scrub, ms.kf.feat_valid,
+                                       m.kf.feat_valid),
+                feat_point=torch.where(need_scrub, ms.kf.feat_point,
+                                       m.kf.feat_point)),
+            pt=m.pt._replace(obs_valid=torch.where(
+                need_scrub, ms.pt.obs_valid, m.pt.obs_valid)))
     enough = rep.n_matches >= cfg.quality_min_fts
 
     # --- 4. pose optimization
     feat_f = cam.cam2world(rep.feat_px)
     pid = torch.clamp(rep.feat_point, 0, P - 1).to(torch.int64)
-    pres = optimize_pose(T_cur, m.pt.pos[pid], feat_f, rep.feat_level,
-                         rep.feat_valid & enough, cam.fx,
-                         reproj_thresh=cfg.poseoptim_thresh,
-                         n_iter=cfg.poseoptim_num_iter)
+    if "pose" in abl:
+        zero = torch.zeros((), device=dev)
+        pres = PoseOptResult(T_cur, torch.eye(6, device=dev),
+                             rep.feat_valid & enough,
+                             rep.n_matches.to(torch.int32), zero, zero,
+                             torch.ones((), device=dev))
+    else:
+        pres = optimize_pose(T_cur, m.pt.pos[pid], feat_f, rep.feat_level,
+                             rep.feat_valid & enough, cam.fx,
+                             reproj_thresh=cfg.poseoptim_thresh,
+                             n_iter=cfg.poseoptim_num_iter)
 
     # --- 6. quality gates (frame_handler_base.cpp:157-171)
     enough_edges = pres.n_obs >= 20
@@ -305,9 +334,11 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                              torch.full_like(rep.feat_point, -1))
 
     # --- 5. structure optimization (masked off on failure)
-    m = _structure_opt_fused(m, T_out, frame_id, feat_point, feat_valid,
-                             cfg.structureoptim_max_pts,
-                             cfg.structureoptim_num_iter, ~failed)
+    if "struct" not in abl:
+        m = _structure_opt_fused(m, T_out, frame_id, feat_point, feat_valid,
+                                 cfg.structureoptim_max_pts,
+                                 cfg.structureoptim_num_iter, ~failed,
+                                 inplace)
 
     # --- scene depth and the keyframe policy (frame_handler_mono.cpp:
     # 183-197: no overlapping keyframe within kfselect_mindist)
@@ -342,14 +373,14 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
             enable=due_work, short_steps=cfg.epi_short_steps,
             long_k=cfg.epi_long_k, max_level=cfg.n_pyr_levels - 1,
             scan_rows=cfg.epi_scan_rows, shard_axis=cfg.shard_axis)
-        m = df.apply_seed_update(m, upd)
+        m = df.apply_seed_update(m, upd, inplace)
 
     # --- 8. keyframe insertion, binding, local BA, seeds, map cap; every
     # write is masked with is_kf
     if "kf" not in abl:
         m = _keyframe_stages(m, pad, T_out, frame_id, rep, feat_f, feat_point,
                              feat_valid, is_kf, depth_mean, depth_min, cam,
-                             cfg, ncx, ncy)
+                             cfg, ncx, ncy, inplace)
 
     new_stage = torch.where(failed, STAGE_RELOC, STAGE_DEFAULT) \
         .to(torch.int32)
@@ -365,12 +396,60 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     return new_state, out
 
 
+def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
+            ncx: int, ncy: int,
+            img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
+    """One tracking and mapping step (DEFAULT or RELOCALIZING stage) on the
+    state's device; returns (new state, outputs).  Reads nothing back to
+    the host, and leaves its input state as it was (the new state shares
+    the tensors the step did not write)."""
+    return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape, inplace=False)
+
+
+def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
+                    ncx: int, ncy: int,
+                    img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
+    """``vo_step`` that consumes its input state, as the JAX package's
+    donated step does: the map pools are written in place, so the new
+    state's pool tensors are the input's storage and no step copies a pool
+    (the keyframe pyramid pool: 48 MB in the fast bench preset, 192 MB in
+    the accurate one).  The results equal ``vo_step``'s.
+
+    The caller must not read the input state afterwards, nor any state
+    that shares its tensors (a ``vo_step`` output shares the tensors its
+    step did not write with that step's input): clone a state to keep it.
+    Raises under ``torch.func.vmap``: a stream batch steps with
+    ``vo_step`` (parallel/streams.py)."""
+    if is_batched(img, *pytree.tree_leaves(state)):
+        raise RuntimeError("vo_step_donated does not run under vmap: a "
+                           "stream batch steps with vo_step")
+    new, out = _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
+                        inplace=True)
+    # the pools the step rewrote whole (masks, types, seed fields, poses)
+    # land in the input's storage too
+    m = pytree.tree_map(
+        lambda old, now: old if now.data_ptr() == old.data_ptr()
+        else old.copy_(now), state.m, new.m)
+    return new._replace(m=m), out
+
+
 def vo_scan(state: VOState, imgs, cam, cfg: Config, ncx: int, ncy: int,
             img_shape: Tuple[int, int]):
     """Track a sequence of images; returns (state, list of StepOut)."""
     outs = []
     for img in imgs:
         state, out = vo_step(state, img, cam, cfg, ncx, ncy, img_shape)
+        outs.append(out)
+    return state, outs
+
+
+def vo_scan_donated(state: VOState, imgs, cam, cfg: Config, ncx: int,
+                    ncy: int, img_shape: Tuple[int, int]):
+    """``vo_scan`` with ``vo_step_donated``: consumes the input state."""
+    outs = []
+    for img in imgs:
+        state, out = vo_step_donated(state, img, cam, cfg, ncx, ncy,
+                                     img_shape)
         outs.append(out)
     return state, outs
 

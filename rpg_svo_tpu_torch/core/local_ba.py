@@ -110,14 +110,17 @@ def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
                  huber_width_px: float, reproj_thresh_px: float, fx: float,
                  n_iter: int = 10, core_n_kfs: int = 3,
                  max_core_points: int = 4096,
-                 shard_axis: str = "") -> MapState:
+                 shard_axis: str = "", enable=True,
+                 inplace: bool = False) -> MapState:
     """Local BA around ``new_kf_slot``; returns the updated map (variable
     keyframe poses, the solved points' positions, pruned observations and
     starved points deleted).  With ``shard_axis`` (mesh mode,
     parallel/fused_mesh.py) the point blocks of the Schur solve are
     sharded over that axis of the ambient mesh: each rank solves its rows,
     the reduced camera system is all-reduced, and the solved rows are
-    all-gathered for the write-back."""
+    all-gathered for the write-back.  ``enable`` (a 0-d bool tensor or a
+    bool) masks the write-back, which ``inplace`` makes into the point
+    pool itself."""
     kf, pt = m.kf, m.pt
     M = pt.obs_kf.shape[1]
     prob, sel, selok, variable = build_local_ba_problem(
@@ -134,18 +137,20 @@ def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
     if shard_axis:
         p_w, inlier = gather_dim0((res.p_w, res.obs_inlier), shard_axis)
         res = res._replace(p_w=p_w, obs_inlier=inlier)
+    variable = variable & enable
     kf = kf._replace(R=torch.where(variable[:, None, None], res.R, kf.R),
                      t=torch.where(variable[:, None], res.t, kf.t))
     ov_rows = pt.obs_valid[sel] & res.obs_inlier[:, :M]
     n_obs_after = torch.sum(ov_rows, dim=1) + (pt.orig_kf[sel] >= 0)
     ptype_sel = pt.ptype[sel]
     starved = selok & (n_obs_after < 2) & (ptype_sel >= TYPE_UNKNOWN)
+    put = lambda arr, val: set_rows(arr, sel, val, selok & enable,  # noqa: E731
+                                    inplace)
     pt = pt._replace(
-        pos=set_rows(pt.pos, sel, res.p_w, selok),
-        obs_valid=set_rows(pt.obs_valid, sel, ov_rows, selok),
-        ptype=set_rows(pt.ptype, sel, torch.where(
-            starved, torch.full_like(ptype_sel, TYPE_DELETED), ptype_sel),
-            selok))
+        pos=put(pt.pos, res.p_w),
+        obs_valid=put(pt.obs_valid, ov_rows),
+        ptype=put(pt.ptype, torch.where(
+            starved, torch.full_like(ptype_sel, TYPE_DELETED), ptype_sel)))
     return m._replace(kf=kf, pt=pt)
 
 

@@ -10,6 +10,12 @@ Scratch-row convention (as in the JAX package): the last row of every pool
 is never handed out as a slot.  The JAX package writes disabled or invalid
 inserts there; the port writes nothing for them (``set_rows``).
 Point types: DELETED < CANDIDATE < UNKNOWN < GOOD.
+
+Each pool write helper of the step returns the written pool.  With
+``inplace`` (the donated step, ``core/fused.vo_step_donated``) it writes
+into the pool itself, which the caller then owns; otherwise into a copy,
+leaving its input as it was (``vo_step``, which ``torch.func.vmap``
+batches).  Both forms write the same values.
 """
 
 from __future__ import annotations
@@ -226,16 +232,21 @@ def alloc_scatter(arr: torch.Tensor, slots: torch.Tensor,
 
 
 def set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
-             ok: torch.Tensor) -> torch.Tensor:
+             ok: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """arr with values written at idx where ok; rows with ok False write
     nothing, so an invalid row never clobbers a valid write to the same
-    index.  Invalid rows are redirected to an extra row that is dropped;
-    valid indices must be distinct."""
+    index; valid indices must be distinct.  Invalid rows are redirected to
+    a spare row: out of place an extra row that is dropped; in place the
+    pool's scratch (last) row, which they rewrite with its own values, so
+    there no valid index may be the last row."""
     n = arr.shape[0]
-    ext = torch.cat([arr, arr[:1]])
+    spare = n - 1 if inplace else n
     tgt = torch.where(ok, idx.to(torch.int64), torch.full_like(
-        idx, n, dtype=torch.int64))
-    return ext.index_put((tgt,), values)[:n]
+        idx, spare, dtype=torch.int64))
+    if not inplace:
+        return torch.cat([arr, arr[:1]]).index_put((tgt,), values)[:n]
+    keep = ok.reshape(ok.shape + (1,) * (arr.dim() - 1))
+    return arr.index_put_((tgt,), torch.where(keep, values, arr[spare]))
 
 
 # ---------------------------------------------------------------------------
@@ -330,12 +341,14 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
                  frame_id: torch.Tensor, feat_px, feat_f, feat_level,
                  feat_point, feat_valid, feat_depth, feat_type=None,
                  feat_grad=None, feat_tile=None, feat_tile_xy0=None,
-                 enable=True) -> Tuple[MapState, torch.Tensor]:
+                 enable=True, inplace: bool = False
+                 ) -> Tuple[MapState, torch.Tensor]:
     """Insert a keyframe into the first free slot (never the scratch row);
     returns (map, slot).  ``enable`` may be a 0-d bool tensor: when it is
     False (or no slot is free) the slot is -1 and every field keeps its
     values (each field's row is written with its own old values, so no
-    host read decides anything)."""
+    host read decides anything).  With ``inplace`` the pools are written
+    in place: one row, where a copy would move the whole pyramid pool."""
     kf = m.kf
     F = feat_px.shape[0]
     dev = feat_px.device
@@ -355,8 +368,10 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
 
     def put(arr, val):
         val = val.reshape((1,) + tuple(arr.shape[1:])).to(arr.dtype)
-        return arr.index_put((sw,), torch.where(ok, val,
-                                                arr.index_select(0, sw)))
+        row = torch.where(ok, val, arr.index_select(0, sw))
+        if inplace:
+            return arr.index_put_((sw,), row)
+        return arr.index_put((sw,), row)
 
     kf = kf._replace(
         flat_pyr=put(kf.flat_pyr, stack),
@@ -380,7 +395,7 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
 
 def alloc_points(pt: PointStore, pos, ptype_val: int, orig_kf, orig_px,
                  orig_f, orig_level, valid, orig_type=None, orig_grad=None,
-                 orig_tile=None, orig_tile_xy0=None
+                 orig_tile=None, orig_tile_xy0=None, inplace: bool = False
                  ) -> Tuple[PointStore, torch.Tensor]:
     """Give row j of the batch the j-th free pool slot where valid;
     returns (store, slot ids (N,) int32, -1 where not allocated)."""
@@ -396,29 +411,32 @@ def alloc_points(pt: PointStore, pos, ptype_val: int, orig_kf, orig_px,
     slots = torch.where(valid, slots, torch.full_like(slots, -1))
     ok = slots >= 0
     zi = torch.zeros((N,), dtype=I32, device=dev)
-    obs_valid = set_rows(pt.obs_valid, slots, torch.zeros(
-        (N, pt.obs_valid.shape[1]), dtype=torch.bool, device=dev), ok)
+
+    def put(arr, val):
+        return set_rows(arr, slots, val, ok, inplace)
+
     pt = pt._replace(
-        pos=set_rows(pt.pos, slots, pos, ok),
-        ptype=set_rows(pt.ptype, slots, torch.full_like(zi, ptype_val), ok),
-        n_succ=set_rows(pt.n_succ, slots, zi, ok),
-        n_fail=set_rows(pt.n_fail, slots, zi, ok),
-        last_optim=set_rows(pt.last_optim, slots, zi, ok),
-        obs_valid=obs_valid,
-        orig_kf=set_rows(pt.orig_kf, slots, orig_kf, ok),
-        orig_px=set_rows(pt.orig_px, slots, orig_px, ok),
-        orig_f=set_rows(pt.orig_f, slots, orig_f, ok),
-        orig_level=set_rows(pt.orig_level, slots, orig_level, ok),
-        orig_type=set_rows(pt.orig_type, slots, orig_type, ok),
-        orig_grad=set_rows(pt.orig_grad, slots, orig_grad, ok),
-        orig_tile=set_rows(pt.orig_tile, slots, orig_tile, ok),
-        orig_tile_xy0=set_rows(pt.orig_tile_xy0, slots, orig_tile_xy0, ok),
+        pos=put(pt.pos, pos),
+        ptype=put(pt.ptype, torch.full_like(zi, ptype_val)),
+        n_succ=put(pt.n_succ, zi),
+        n_fail=put(pt.n_fail, zi),
+        last_optim=put(pt.last_optim, zi),
+        obs_valid=put(pt.obs_valid, torch.zeros(
+            (N, pt.obs_valid.shape[1]), dtype=torch.bool, device=dev)),
+        orig_kf=put(pt.orig_kf, orig_kf),
+        orig_px=put(pt.orig_px, orig_px),
+        orig_f=put(pt.orig_f, orig_f),
+        orig_level=put(pt.orig_level, orig_level),
+        orig_type=put(pt.orig_type, orig_type),
+        orig_grad=put(pt.orig_grad, orig_grad),
+        orig_tile=put(pt.orig_tile, orig_tile),
+        orig_tile_xy0=put(pt.orig_tile_xy0, orig_tile_xy0),
     )
     return pt, slots
 
 
 def add_point_observations(pt: PointStore, point_ids, kf_slot, feat_idx,
-                           valid) -> PointStore:
+                           valid, inplace: bool = False) -> PointStore:
     """Append one (kf_slot, feat_idx) observation per valid point at its
     first free observation slot, or over the ring slot n_succ % M when
     full (Point::addFrameRef with a cap).  Point ids must be distinct."""
@@ -431,12 +449,13 @@ def add_point_observations(pt: PointStore, point_ids, kf_slot, feat_idx,
     has_free = torch.any(free, dim=1)
     slot = torch.where(has_free, slot, (pt.n_succ[pid] % M).to(torch.int64))
     P = pt.obs_kf.shape[0]
-    flat = torch.where(ok, pid * M + slot, torch.full_like(pid, P * M))
+    flat = pid * M + slot
 
     def put(arr, val):
-        ext = torch.cat([arr.reshape(-1), arr.reshape(-1)[:1]])
-        return ext.index_put((flat,), val.to(arr.dtype))[:P * M] \
-            .reshape(P, M)
+        # one row per (point, observation) cell; the flattened table's
+        # last row is a cell of the scratch point, which no valid id names
+        return set_rows(arr.reshape(-1), flat, val.to(arr.dtype), ok,
+                        inplace).view(P, M)
 
     return pt._replace(
         obs_kf=put(pt.obs_kf, kf_slot),

@@ -102,9 +102,10 @@ def grid_select(px, visible, ptype, grid_size: int, ncx: int, ncy: int,
 
 
 def match_cells(m: MapState, T_cur: SE3, cam, n_fail, ptype, has, sel_pt,
-                max_level: int, cur_pad, max_fts: int):
+                max_level: int, cur_pad, max_fts: int, inplace: bool = False):
     """Closest-view reference observation, batched direct matching and the
-    counter updates.  Returns (PointStore, ReprojectResult)."""
+    counter updates (into the point pool itself with ``inplace``).
+    Returns (PointStore, ReprojectResult)."""
     pt = m.pt
     K = m.kf.R.shape[0]
     sel_pos = pt.pos[sel_pt]
@@ -169,11 +170,14 @@ def match_cells(m: MapState, T_cur: SE3, cam, n_fail, ptype, has, sel_pt,
     success = attempt & match.success \
         & cam.is_in_frame(match.px_cur, boundary=2.0)
 
-    one = torch.ones_like(sel_pt, dtype=torch.int32)
-    zero = torch.zeros_like(one)
-    n_succ = pt.n_succ.index_add(0, sel_pt, torch.where(success, one, zero))
-    n_fail = n_fail.index_add(0, sel_pt,
-                              torch.where(attempt & ~success, one, zero))
+    def count(arr, hit):
+        ones = hit.to(torch.int32)
+        if inplace:
+            return arr.index_add_(0, sel_pt, ones)
+        return arr.index_add(0, sel_pt, ones)
+
+    n_succ = count(pt.n_succ, success)
+    n_fail = count(n_fail, attempt & ~success)
     full = lambda v: torch.full_like(ptype, v)  # noqa: E731
     ptype = torch.where((ptype == TYPE_UNKNOWN) & (n_fail > 15),
                         full(TYPE_DELETED), ptype)
@@ -209,12 +213,14 @@ def match_cells(m: MapState, T_cur: SE3, cam, n_fail, ptype, has, sel_pt,
 
 def reproject_map(m: MapState, T_cur: SE3, cam, grid_size: int, ncx: int,
                   ncy: int, max_level: int = 4, cur_pad=None,
-                  max_fts: int = 0, attempt_factor: float = 2.0):
+                  max_fts: int = 0, attempt_factor: float = 2.0,
+                  inplace: bool = False):
     """Returns (PointStore with updated counters and types,
-    ReprojectResult)."""
+    ReprojectResult); ``inplace`` adds the match counters into the pool
+    itself."""
     px, vis0 = project_points(m.pt, T_cur, cam)
     n_fail, ptype, visible = candidate_bookkeeping(m.pt, vis0)
     has, sel_pt = grid_select(px, visible, ptype, grid_size, ncx, ncy,
                               max_fts, attempt_factor)
     return match_cells(m, T_cur, cam, n_fail, ptype, has, sel_pt,
-                       max_level, cur_pad, max_fts)
+                       max_level, cur_pad, max_fts, inplace)

@@ -1,0 +1,179 @@
+"""The port's donated step (``core/fused.vo_step_donated`` and
+``vo_scan_donated``) against its functional step and against the JAX
+package's ``vo_step_donated``, on the CPU.
+
+The port's own run of the whole-step scene (tests/_torch_port.py,
+``FULL_KW``), seeded by the port, over frames 1-8 (a keyframe at frame 6):
+the donated step from a clone of the seeding equals ``vo_step`` bit for
+bit, outputs and states, in both presets (local BA runs in the accurate
+one); its pools keep their storage from step to step, while ``vo_step``
+leaves its input equal to a clone taken before the step.  Against JAX:
+frames 6 and 7 from the port's state after frame 5, converted, at the
+whole-step tolerances of tests/test_torch_fused.py (1e-5 m after one
+step, 1e-4 after two)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.utils._pytree as pytree
+
+from rpg_svo_tpu import config as jconfig
+from rpg_svo_tpu.core import fused as jfused
+from rpg_svo_tpu_torch import config as tconfig
+from rpg_svo_tpu_torch.core import fused as tfused
+from rpg_svo_tpu_torch.core import map as tmap
+from rpg_svo_tpu_torch.core.convert import state_from_numpy, state_to_numpy
+from rpg_svo_tpu_torch.geometry.se3 import SE3 as TSE3
+from rpg_svo_tpu_torch.parallel.streams import stack_states
+
+from _torch_port import FULL_KW, SHAPE, jax_state, jax_tree, run_full, \
+    to_torch
+from test_torch_fused import _compare_full, _outs_equal
+
+N_FRAMES = 8
+JAX_FROM = 5           # the JAX comparison: frames 6 and 7 from here
+
+
+def _clone(state):
+    return pytree.tree_map(torch.clone, state)
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in
+               zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
+
+
+def _ptrs(state):
+    return [x.data_ptr() for x in pytree.tree_leaves(state.m)]
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """The whole-step scene (frame 0's image, depth and pose, the grid),
+    with no JAX step run."""
+    return run_full("fast", 0)
+
+
+def _imgs(scene):
+    return [to_torch(np.asarray(scene["ds"].frame(i)[0]))
+            for i in range(1, N_FRAMES + 1)]
+
+
+@pytest.fixture(scope="module")
+def runs(scene):
+    """Per preset: the seeding, then N_FRAMES of vo_step (each checked to
+    leave its input as it was) and of vo_step_donated from a clone of the
+    seeding (the pools' data pointers after each step)."""
+    out = {}
+    ncx, ncy = scene["fh"].ncx, scene["fh"].ncy
+    imgs = _imgs(scene)
+    for preset in ("fast", "accurate"):
+        cfg = getattr(tconfig, f"{preset}_preset")(**FULL_KW)
+        Tfw = scene["T0"].inverse()
+        s0 = tfused.seed_first_frame_with_depth(
+            to_torch(scene["img0"]), TSE3(to_torch(Tfw.R), to_torch(Tfw.t)),
+            to_torch(scene["depth0"]), scene["cam"], cfg, img_shape=SHAPE,
+            device="cpu")
+        states, outs, kept = [s0], [], []
+        for img in imgs:
+            before = _clone(states[-1])
+            s, o = tfused.vo_step(states[-1], img, scene["cam"], cfg, ncx,
+                                  ncy, SHAPE)
+            kept.append(_equal(states[-1], before))
+            states.append(s)
+            outs.append(o)
+        d = _clone(s0)
+        ptrs0 = _ptrs(d)
+        d_states, d_outs, same_storage = [], [], []
+        for img in imgs:
+            d, o = tfused.vo_step_donated(d, img, scene["cam"], cfg, ncx,
+                                          ncy, SHAPE)
+            d_states.append(_clone(d))
+            d_outs.append(o)
+            same_storage.append(_ptrs(d) == ptrs0)
+        out[preset] = dict(cfg=cfg, states=states, outs=outs, kept=kept,
+                           d_states=d_states, d_outs=d_outs,
+                           same_storage=same_storage)
+    return out
+
+
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_donated_step_equals_vo_step(runs, preset):
+    r = runs[preset]
+    assert any(bool(o.is_keyframe) for o in r["outs"])
+    assert not any(bool(o.failed) for o in r["outs"])
+    for i, (o, od) in enumerate(zip(r["outs"], r["d_outs"])):
+        assert _equal(o, od), i
+        assert _equal(r["states"][i + 1], r["d_states"][i]), i
+
+
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_donated_step_writes_the_pools_in_place(runs, preset):
+    """The donated step's pools are its input's storage after every step;
+    vo_step leaves its input as it was."""
+    r = runs[preset]
+    assert all(r["same_storage"]), r["same_storage"]
+    assert all(r["kept"]), r["kept"]
+
+
+def test_donated_scan_equals_the_step_loop(scene, runs):
+    r = runs["fast"]
+    st, outs = tfused.vo_scan_donated(
+        _clone(r["states"][0]), _imgs(scene), scene["cam"], r["cfg"],
+        scene["fh"].ncx, scene["fh"].ncy, SHAPE)
+    assert all(_equal(o, od) for o, od in zip(outs, r["d_outs"]))
+    assert _equal(st, r["d_states"][-1])
+
+
+def test_donated_step_matches_jax(scene, runs):
+    """Frames 6 (a keyframe) and 7 from the port's state after frame 5:
+    the port's donated step against JAX's."""
+    r = runs["fast"]
+    tree = state_to_numpy(r["states"][JAX_FROM])
+    jcfg = jconfig.fast_preset(**FULL_KW)
+    js = jax_state(tree)
+    ts = state_from_numpy(tree, device="cpu")
+    kfs = []
+    for k, atol in ((JAX_FROM, 1e-5), (JAX_FROM + 1, 1e-4)):
+        img = np.asarray(scene["ds"].frame(k + 1)[0])
+        js, jo = jfused.vo_step_donated(js, jnp.asarray(img), scene["ds"].cam,
+                                        jcfg, scene["fh"].ncx,
+                                        scene["fh"].ncy, SHAPE)
+        ts, to = tfused.vo_step_donated(ts, to_torch(img), scene["cam"],
+                                        r["cfg"], scene["fh"].ncx,
+                                        scene["fh"].ncy, SHAPE)
+        _outs_equal(to, jo, atol)
+        kfs.append(bool(to.is_keyframe))
+    assert any(kfs)
+    _compare_full(state_to_numpy(ts), jax_tree(js), 1e-4)
+
+
+def test_row_writes_in_place_equal_their_copies():
+    """set_rows in place: the pool's own storage, the values of the
+    out-of-place form.  Its invalid rows (one of them at a valid row's
+    index) leave every other row, the scratch row included, bit-equal."""
+    rng = np.random.default_rng(5)
+    arr = to_torch(rng.normal(size=(10, 3)).astype(np.float32))
+    idx = to_torch(np.array([2, 4, 4, 0, 7], np.int64))
+    ok = to_torch(np.array([True, False, True, False, True]))
+    vals = to_torch(rng.normal(size=(5, 3)).astype(np.float32))
+    want = tmap.set_rows(arr, idx, vals, ok)
+    pool = arr.clone()
+    got = tmap.set_rows(pool, idx, vals, ok, inplace=True)
+    assert got.data_ptr() == pool.data_ptr() and torch.equal(got, want)
+    keep = np.setdiff1d(np.arange(10), [2, 4, 7])
+    assert torch.equal(want[keep], arr[keep])
+    assert torch.equal(want[[2, 4, 7]], vals[[0, 2, 4]])
+
+
+def test_donated_step_raises_under_vmap(scene, runs):
+    r = runs["fast"]
+    states = stack_states([r["states"][1], r["states"][2]])
+    imgs = torch.stack(_imgs(scene)[2:4])
+
+    def step(s, img):
+        return tfused.vo_step_donated(s, img, scene["cam"], r["cfg"],
+                                      scene["fh"].ncx, scene["fh"].ncy, SHAPE)
+    with pytest.raises(RuntimeError, match="vmap"):
+        torch.func.vmap(step)(states, imgs)
