@@ -98,10 +98,11 @@ one, or without the port beside it.  Phases, each fatal on failure:
    select_top_k (positions to 1e-3 px, discrete results equal); the
    dashboard and the plots do not run here (no matplotlib on the card's
    machine);
-20. (run last, after phases 21-24) one JSON line of kernel
+20. (run last, after phases 21-25) one JSON line of kernel
    measurements (launches per frame on every path, the batched launches
-   of phase 21, the donated steps of phase 23), the card's line, and the
-   result;
+   of phase 21, the donated steps of phase 23 and the graphed scans of
+   phase 25, those three by the profiler's kernel events), the card's
+   line, and the result;
 21. camera streams in one step: ``parallel.streams.vmapped_vo_step``
    (fast, 752x480) over 4 streams, stream b from phase 5's state after
    frame 10 b, each tracking its next 20 frames: no failed frame, each
@@ -118,24 +119,41 @@ one, or without the port beside it.  Phases, each fatal on failure:
    ``distributed_ba_solve``, ``multistream_step`` and 3 frames of
    ``vo_step_mesh`` to their single-device counterparts on the card
    (1e-6); NCCL across GPUs is not run (one card);
-23. the donated step ``vo_step_donated`` in both presets, from a clone of
-   phase 5's state before its first keyframe, through that keyframe and 5
-   frames past it: within 1e-5 m of phase 5 at every frame, the same
-   keyframe, 4 K1 and 1 K2 launches and 0 host syncs per frame, every pool
-   tensor's data pointer unchanged, ``vo_scan_donated`` over the window
-   within 1e-5 m of the step loop; then the keyframe step and the next by
-   ``vo_step`` and by ``vo_step_donated`` in turns: host ms, peak device
-   memory above the input, and device ops and device ms of 5 profiles
-   each way in turns (median and range; a difference whose ranges overlap
-   is printed as unresolved);
+23. the donated step ``vo_step_donated`` (a CUDA graph on the card: its
+   first call for a state's storage runs the step and captures it, later
+   calls replay it) in both presets, from a clone of phase 5's state
+   before its first keyframe, through that keyframe and 5 frames past it:
+   within 1e-5 m of phase 5 at every frame, the same keyframe, 4 K1 and 1
+   K2 kernel events per frame (the profiler's: the wrappers count no
+   replay), 0 host syncs per frame, every state leaf's data pointer
+   unchanged, ``vo_scan_donated`` over the window within 1e-5 m of the
+   step loop; then the keyframe step and the next by eager ``vo_step`` and
+   by a replay of ``vo_step_donated`` in turns: host ms (the replay's is
+   the graph's launch and its device time, no longer the eager donated
+   step's dispatch), peak device memory above the input, and device ops
+   and device ms of 5 profiles each way in turns (median and range; a
+   difference whose ranges overlap is printed as unresolved);
 24. stage attribution: the fast step under each code-level stub of
    tools_stage_timing.py (``cfg.ablate``: full, no_align, no_reproject,
    no_pose, no_struct, no_df, no_kf, only_pyr) through
-   ``vo_step_donated``, each from a clone of phase 5's state after frame
-   10, in 3 interleaved rounds of 3 warm-up and 10 timed steps: host ms
-   per step (the median round), device ms and device ops of one step, K1
-   and K2 launches, failed and keyframe counts, each beside full's; finite
-   poses, and no K2 launch where "align" is stubbed.
+   ``vo_step_donated`` on one state buffer per variant (one graph each),
+   set to phase 5's state after frame 10 before each of 3 interleaved
+   rounds of 3 warm-up and 10 timed replays: host ms per step (the median
+   round; a replay's, so the stubs' host deltas now follow their device
+   time), device ms, device ops and K1 and K2 kernel events of one step,
+   failed and keyframe counts, each beside full's; finite poses, and no
+   K2 kernel where "align" is stubbed;
+25. the donated step as one CUDA graph: ``vo_scan_donated`` in both
+   presets over frames 1-120 from a clone of the seeded state (frame 1
+   captures, the rest replay): within 1e-6 m (fast) and 1e-5 m
+   (accurate) of phase 5's eager ``vo_step`` at every frame, the same
+   keyframes, the limits of phase 5; 0 host syncs over the replayed
+   frames; per replayed frame, from the profiler, 4 K1 and 1 K2 kernel
+   events, under 50 host-side aten ops (eager: ~9k), device ops and
+   device ms; capture seconds and the graph's pool MB; host ms per frame
+   of eager ``vo_step`` and of replays over frames 1-10, the median of 5
+   interleaved rounds (every round printed), and each way's device busy
+   share.
 """
 
 from __future__ import annotations
@@ -276,6 +294,13 @@ STAGE_FROM = 10                # from the fast run's state after this frame
 STAGE_ROUNDS = 3
 STAGE_WARM = 3
 STAGE_TIMED = 10
+# phase 25: the donated step as a CUDA graph over frames 1-PRESET_FRAMES;
+# against phase 5's eager vo_step: the same kernels in the same order
+# (fast), local BA's atomic sums (accurate)
+GRAPH_TOL_M = {"fast": 1e-6, "accurate": 1e-5}
+GRAPH_PROFILED = 5             # the last frames, profiled
+GRAPH_MAX_HOST_OPS = 50        # aten ops dispatched per replayed frame
+GRAPH_ROUNDS, GRAPH_TIMED = 5, 10   # host ms: rounds, frames per round
 MESH_TOL = 1e-6                # phase 22: mesh programs against one device
 MESH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -502,19 +527,38 @@ def _device_profile(torch, fn):
     return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3, by, prof
 
 
-def _device_totals(torch, fn):
-    """(device ops, device ms) of one call of fn, as ``_device_profile``
-    counts them, from the profiler's raw events: building its event tree
-    takes seconds for a step's ~9k kernels."""
+def _raw_profile(torch, fn):
+    """(fn's result, figures) of one call of fn from the profiler's raw
+    events (building its event tree takes seconds for a step's ~9k
+    kernels): device ops and device ms as ``_device_profile`` counts them,
+    the K1 and K2 kernels the card ran (a CUDA graph's replays included,
+    which the wrappers' counts never see) and the aten ops dispatched on
+    the host."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.profiler.kineto_results.events()
-          if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return len(ev), sum(e.duration_ns() for e in ev) / 1e6
+    dev, host = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev.append(e)
+        elif e.name().startswith("aten::"):
+            host += 1
+    names = [e.name() for e in dev]
+    return out, {"device_ops": len(dev),
+                 "device_ms": sum(e.duration_ns() for e in dev) / 1e6,
+                 "tile_gather": sum("tile_gather_kernel" in n for n in names),
+                 "sparse_align": sum("sparse_align_kernel" in n
+                                     for n in names),
+                 "host_aten_ops": host}
+
+
+def _device_totals(torch, fn):
+    """(device ops, device ms) of one call of fn (``_raw_profile``)."""
+    _, r = _raw_profile(torch, fn)
+    return r["device_ops"], r["device_ms"]
 
 
 def _host_syncs(torch, fn):
@@ -1421,9 +1465,17 @@ def _clone_state(state):
     return pytree.tree_map(torch.clone, state)
 
 
-def _pool_ptrs(state) -> list:
+def _copy_state(dst, src):
+    """src's values into dst's storage: a donated step of dst then replays
+    the CUDA graph of dst's storage."""
     import torch.utils._pytree as pytree
-    return [x.data_ptr() for x in pytree.tree_leaves(state.m)]
+    pytree.tree_map(lambda d, s_: d.copy_(s_), dst, src)
+    return dst
+
+
+def _state_ptrs(state) -> list:
+    import torch.utils._pytree as pytree
+    return [x.data_ptr() for x in pytree.tree_leaves(state)]
 
 
 def _step_figures(torch, step) -> dict:
@@ -1446,14 +1498,17 @@ def _step_figures(torch, step) -> dict:
 
 
 def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
-    """Phase 23: the donated step (``vo_step_donated``) in both presets
-    from a clone of phase 5's state before its first keyframe, through the
-    keyframe and DONATED_PAST frames past it, against phase 5's run; then
-    ``vo_scan_donated`` over the same window; then the keyframe step and
-    the next, each by ``vo_step`` and by ``vo_step_donated`` (host ms, peak
-    memory, and device ops and device ms of DONATED_PROFILES profiles each
-    way, in turns; a device-ms difference counts as resolved only where the
-    two ways' profiles do not overlap)."""
+    """Phase 23: the donated step (``vo_step_donated``, a CUDA graph on the
+    card: the first call for a state's storage runs the step and captures
+    it, later calls replay it) in both presets from a clone of phase 5's
+    state before its first keyframe, through the keyframe and
+    DONATED_PAST frames past it, against phase 5's run, launches counted
+    by the profiler's kernel events; then ``vo_scan_donated`` over the same
+    window from another clone; then the keyframe step and the next, each
+    by eager ``vo_step`` and by a replay of ``vo_step_donated`` (host ms,
+    peak memory, and device ops and device ms of DONATED_PROFILES profiles
+    each way, in turns; a device-ms difference counts as resolved only
+    where the two ways' profiles do not overlap)."""
     import torch
     from rpg_svo_tpu_torch.core import fused
     ncx, ncy = grid
@@ -1463,17 +1518,19 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
         cfg = cfgs[preset]
         frames = range(s + 1, k + DONATED_PAST + 1)
         st = _clone_state(snap)
-        ptrs = _pool_ptrs(st)
-        d_outs, launches, syncs, same_storage = [], [], [], True
-        for j in frames:
-            _reset_counts()
-            (st, out), sy = _host_syncs(torch, functools.partial(
-                fused.vo_step_donated, st, imgs[j - 1], cam, cfg, ncx, ncy,
-                shape))
-            launches.append(_read_counts())
-            syncs.append(len(sy))
-            same_storage &= _pool_ptrs(st) == ptrs
-            d_outs.append(out)
+        ptrs = _state_ptrs(st)
+
+        def window():
+            d_outs, syncs, same = [], [], True
+            for j in frames:
+                (_, out), sy = _host_syncs(torch, functools.partial(
+                    fused.vo_step_donated, st, imgs[j - 1], cam, cfg, ncx,
+                    ncy, shape))
+                syncs.append(len(sy))
+                same &= _state_ptrs(st) == ptrs
+                d_outs.append(out)
+            return d_outs, syncs, same
+        (d_outs, syncs, same_storage), ev = _raw_profile(torch, window)
         pos = torch.stack([o.t_wc for o in d_outs]).cpu().numpy()
         ref = np.stack([outs[j - 1].t_wc.cpu().numpy() for j in frames])
         dt = float(np.abs(pos - ref).max())
@@ -1484,26 +1541,31 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
         scan_dt = float(max(torch.abs(a.t_wc - b.t_wc).max()
                             for a, b in zip(s_outs, d_outs)))
         scan_kfs = [j for j, o in zip(frames, s_outs) if bool(o.is_keyframe)]
-        want = {"tile_gather": K1_PER_FRAME, "sparse_align": 1}
+        launches = {key: ev[key] for key in ("tile_gather", "sparse_align")}
+        want = {"tile_gather": K1_PER_FRAME * len(frames),
+                "sparse_align": len(frames)}
         print(f"# donated {preset}: frames {s + 1}-{frames[-1]} from a clone "
-              f"of the state after frame {s}: max |dt_wc| against phase 5 "
-              f"{dt:.3e} m (tol {DONATED_TOL_M}); keyframes {kfs} (phase 5: "
-              f"{kfs_ref}); launches per frame all {want}: "
-              f"{all(x == want for x in launches)}; host syncs "
-              f"{sum(syncs)}; pool data pointers unchanged: {same_storage}; "
+              f"of the state after frame {s} (the first a capture, then "
+              f"replays): max |dt_wc| against phase 5 {dt:.3e} m (tol "
+              f"{DONATED_TOL_M}); keyframes {kfs} (phase 5: {kfs_ref}); "
+              f"kernel events {launches} (want {want}); host syncs per frame "
+              f"{syncs}; every leaf's data pointer unchanged: {same_storage}; "
               f"vo_scan_donated against the step loop: max |dt_wc| "
               f"{scan_dt:.3e} m, keyframes {scan_kfs}", flush=True)
         assert np.isfinite(pos).all() and dt <= DONATED_TOL_M, (preset, dt)
         assert kfs == kfs_ref and kfs and kfs[0] == k, (preset, kfs, kfs_ref)
-        assert all(x == want for x in launches), (preset, launches)
+        assert launches == want, (preset, launches)
         assert not any(syncs), (preset, syncs)
-        assert same_storage, f"{preset}: a donated pool moved"
+        assert same_storage, f"{preset}: a donated leaf moved"
         assert scan_dt <= DONATED_TOL_M and scan_kfs == kfs, (preset, scan_dt)
 
-        # the keyframe step and the next, each way, interleaved
+        # the keyframe step and the next, each way, interleaved; the
+        # donated calls step one state buffer, so each replays its graph
         st = snap
         for j in range(s + 1, k):
             st, _ = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
+        buf = _clone_state(st)
+        fused.vo_step_donated(buf, imgs[k - 1], cam, cfg, ncx, ncy, shape)
         steps = {}
         for label, j in (("keyframe", k), ("other", k + 1)):
             def plain(st=st, j=j):
@@ -1512,8 +1574,8 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
 
             def donated(st=st, j=j):
                 return functools.partial(fused.vo_step_donated,
-                                         _clone_state(st), imgs[j - 1], cam,
-                                         cfg, ncx, ncy, shape)
+                                         _copy_state(buf, st), imgs[j - 1],
+                                         cam, cfg, ncx, ncy, shape)
             ways = {"vo_step": plain, "vo_step_donated": donated}
             # in turns: plain, donated, donated, plain
             runs = [(way, _step_figures(torch, ways[way])) for way in
@@ -1541,7 +1603,7 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
             resolved = max(dm) < min(fm) or max(fm) < min(dm)
             steps[label] = dict(fig, frame=j, device_ms_resolved=resolved)
             print(f"# donated {preset} {label} step (frame {j}), vo_step / "
-                  f"vo_step_donated: host {f['host_ms']:.2f} / "
+                  f"vo_step_donated (a replay): host {f['host_ms']:.2f} / "
                   f"{d['host_ms']:.2f} ms (median of {len(f['host_ms_calls'])}"
                   f" calls each), device ops {f['device_ops']} / "
                   f"{d['device_ops']}, device {f['device_ms']:.3f} "
@@ -1554,12 +1616,11 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
                   f"{f['peak_mb_above_input']:.1f} / "
                   f"{d['peak_mb_above_input']:.1f} MB", flush=True)
             st = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)[0]
+        del buf
         res[preset] = {"frames": [s + 1, frames[-1]], "max_dt_m": dt,
-                       "keyframes": kfs, "launches": {
-                           key: sum(x[key] for x in launches)
-                           for key in want},
-                       "n_frames": len(frames), "host_syncs": sum(syncs),
-                       "pools_kept_storage": same_storage,
+                       "keyframes": kfs, "launches": launches,
+                       "n_frames": len(frames), "host_syncs": syncs,
+                       "leaves_kept_storage": same_storage,
                        "scan_max_dt_m": scan_dt, "steps": steps}
     res["seconds"] = time.perf_counter() - t_phase
     return res
@@ -1567,62 +1628,62 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
 
 def _stage_phase(snap, imgs, cam, cfg, grid, shape) -> dict:
     """Phase 24: the eight code-level stubs of tools_stage_timing.py
-    (``cfg.ablate``), fast, each from a clone of the state after frame
-    STAGE_FROM through ``vo_step_donated``: STAGE_ROUNDS interleaved
-    rounds of STAGE_WARM warm-up and STAGE_TIMED timed steps; host ms per
-    step, launches, failed and keyframe counts of the timed steps; device
-    ops and device ms of one more step."""
+    (``cfg.ablate``), fast, each through ``vo_step_donated`` on a state
+    buffer of its own (one CUDA graph per variant, captured by its first
+    warm-up step; the timed steps are replays), the buffer set to the
+    state after frame STAGE_FROM before each round: STAGE_ROUNDS
+    interleaved rounds of STAGE_WARM warm-up and STAGE_TIMED timed steps;
+    host ms per step, failed and keyframe counts of the timed steps;
+    device ops, device ms and the K1 and K2 kernel events of one more
+    step."""
     import torch
     from rpg_svo_tpu_torch.core import fused
     ncx, ncy = grid
     t_phase = time.perf_counter()
     names = tuple(STAGE_VARIANTS)
     rounds = {v: [] for v in names}
-    counted = {v: {"tile_gather": 0, "sparse_align": 0, "failed": 0,
-                   "keyframes": 0} for v in names}
-    prof = {}
+    counted = {v: {"failed": 0, "keyframes": 0} for v in names}
+    bufs, prof = {}, {}
     for r in range(STAGE_ROUNDS):
         for v in names[r % len(names):] + names[:r % len(names)]:
             c = cfg.replace(ablate=STAGE_VARIANTS[v])
-            st = _clone_state(snap)
+            if v in bufs:
+                st = _copy_state(bufs[v], snap)
+            else:
+                st = bufs[v] = _clone_state(snap)
             j = STAGE_FROM
             for _ in range(STAGE_WARM):
-                st, _ = fused.vo_step_donated(st, imgs[j], cam, c, ncx, ncy,
-                                              shape)
+                fused.vo_step_donated(st, imgs[j], cam, c, ncx, ncy, shape)
                 j += 1
-            _reset_counts()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs = []
             for _ in range(STAGE_TIMED):
-                st, o = fused.vo_step_donated(st, imgs[j], cam, c, ncx, ncy,
-                                              shape)
-                outs.append(o)
+                outs.append(fused.vo_step_donated(st, imgs[j], cam, c, ncx,
+                                                  ncy, shape)[1])
                 j += 1
             torch.cuda.synchronize()
             rounds[v].append((time.perf_counter() - t0) / STAGE_TIMED * 1e3)
-            for key, n in _read_counts().items():
-                counted[v][key] += n
             pos = torch.stack([o.t_wc for o in outs]).cpu().numpy()
             assert np.isfinite(pos).all(), (v, "a pose is not finite")
             counted[v]["failed"] += sum(bool(o.failed) for o in outs)
             counted[v]["keyframes"] += sum(bool(o.is_keyframe) for o in outs)
             if v not in prof:
-                ops, dms, kms, _ = _device_profile(
+                ops, dms, kms, p_ = _device_profile(
                     torch, functools.partial(fused.vo_step_donated, st,
                                              imgs[j], cam, c, ncx, ncy,
                                              shape))
-                prof[v] = (ops, dms, kms)
+                prof[v] = (ops, dms, kms, _kernel_counts(p_))
+    bufs.clear()
     n_steps = STAGE_ROUNDS * STAGE_TIMED
     table = {}
     for v in names:
-        ops, dms, kms = prof[v]
+        ops, dms, kms, kcount = prof[v]
         table[v] = {"ablate": list(STAGE_VARIANTS[v]),
                     "host_ms": float(np.median(rounds[v])),
                     "host_ms_rounds": rounds[v], "device_ops": ops,
                     "device_ms": dms, "kernel_device_ms": kms,
-                    "launches_per_step": {
-                        k: counted[v][k] / n_steps
-                        for k in ("tile_gather", "sparse_align")},
+                    "launches_per_step": kcount,
                     "failed": counted[v]["failed"],
                     "keyframes": counted[v]["keyframes"], "steps": n_steps}
     full = table["full"]
@@ -1635,15 +1696,135 @@ def _stage_phase(snap, imgs, cam, cfg, grid, shape) -> dict:
               f"[{t['minus_full']['host_ms']:+.2f}], device "
               f"{t['device_ms']:.3f} ms [{t['minus_full']['device_ms']:+.3f}]"
               f", {t['device_ops']} ops [{t['minus_full']['device_ops']:+d}]"
-              f"; K1, K2 per step {t['launches_per_step']['tile_gather']:.2f},"
-              f" {t['launches_per_step']['sparse_align']:.2f}; failed "
+              f"; K1, K2 kernel events per step "
+              f"{t['launches_per_step']['tile_gather']}, "
+              f"{t['launches_per_step']['sparse_align']}; failed "
               f"{t['failed']}, keyframes {t['keyframes']} of {n_steps}",
               flush=True)
         if "align" in STAGE_VARIANTS[v]:
-            assert counted[v]["sparse_align"] == 0, (v, counted[v])
+            assert t["launches_per_step"]["sparse_align"] == 0, (v, t)
     return {"from_frame": STAGE_FROM, "rounds": STAGE_ROUNDS,
             "warm": STAGE_WARM, "timed": STAGE_TIMED, "variants": table,
             "seconds": time.perf_counter() - t_phase}
+
+
+def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
+                 gt) -> dict:
+    """Phase 25: the donated step as one CUDA graph.  Per preset, from a
+    clone of the seeded state, ``vo_scan_donated`` over frames 1-n
+    (PRESET_FRAMES): frame 1 runs the step and captures it, then frames
+    2..n-GRAPH_PROFILED under sync debug mode and the last GRAPH_PROFILED
+    under the profiler are replays.  Against phase 5's eager ``vo_step``
+    (GRAPH_TOL_M, the same keyframes) and the pins' limits; host syncs,
+    K1 and K2 kernel events, host aten ops and device ms per replayed
+    frame; capture seconds and the graph's pool.  Then host ms per frame
+    of eager ``vo_step`` and of replays over frames 1-GRAPH_TIMED from the
+    seeded state, in GRAPH_ROUNDS interleaved rounds, and each way's
+    device busy share (device ms per frame over host ms per frame)."""
+    import torch
+    from rpg_svo_tpu_torch.core import fused, graphed
+    ncx, ncy = grid
+    t_phase = time.perf_counter()
+    res = {}
+    for preset, cfg in cfgs.items():
+        n, P = PRESET_FRAMES[preset], GRAPH_PROFILED
+        scan = functools.partial(fused.vo_scan_donated, cam=cam, cfg=cfg,
+                                 ncx=ncx, ncy=ncy, img_shape=shape)
+        st = _clone_state(seeded[preset])
+        t0 = time.perf_counter()
+        st, outs = scan(st, imgs[:1])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _, key_capture_s, key_pool_mb = graphed.graphs()[-1]
+        (st, outs2), syncs = _host_syncs(torch, lambda: scan(st, imgs[1:n - P]))
+        (st, outs3), ev = _raw_profile(torch, lambda: scan(st, imgs[n - P:n]))
+        outs = outs + outs2 + outs3
+        pos = torch.stack([o.t_wc for o in outs]).cpu().numpy()
+        ref = np.stack([o.t_wc.cpu().numpy() for o in phase5_outs[preset][:n]])
+        dt = float(np.abs(pos - ref).max())
+        kfs = [i for i, o in enumerate(outs, 1) if bool(o.is_keyframe)]
+        kfs_ref = [i for i, o in enumerate(phase5_outs[preset][:n], 1)
+                   if bool(o.is_keyframe)]
+        failed = [i for i, o in enumerate(outs, 1) if bool(o.failed)]
+        terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
+        med, mx = float(np.median(terr)) * 1e3, float(terr.max()) * 1e3
+        per = {k_: ev[k_] / P for k_ in ("tile_gather", "sparse_align",
+                                         "host_aten_ops", "device_ops",
+                                         "device_ms")}
+        # frames 1-GRAPH_TIMED from the seeded state, eager or replayed
+        # (the scan's state set to the seeded one: the scan's graph)
+        def block(way):
+            src = seeded[preset]
+            if way == "graphed":
+                src = _copy_state(st, src)
+            step = fused.vo_step if way == "vo_step" \
+                else fused.vo_step_donated
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(GRAPH_TIMED):
+                src, _ = step(src, imgs[i], cam, cfg, ncx, ncy, shape)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / GRAPH_TIMED * 1e3
+        rounds = {"vo_step": [], "graphed": []}
+        for r in range(GRAPH_ROUNDS):
+            for way in (("vo_step", "graphed") if r % 2 == 0
+                        else ("graphed", "vo_step")):
+                rounds[way].append(block(way))
+        host = {w: statistics.median(v) for w, v in rounds.items()}
+        # device ms and host aten ops per frame of the same frames, each
+        # way profiled once more: the busy share is device ms over the
+        # median host ms
+        blocks = {w: {k_: v / GRAPH_TIMED for k_, v in
+                      _raw_profile(torch, functools.partial(block, w))[1]
+                      .items()} for w in rounds}
+        busy = {w: blocks[w]["device_ms"] / host[w] for w in rounds}
+        res[preset] = {
+            "frames": n, "max_dt_m": dt, "keyframes": kfs,
+            "median_terr_mm": med, "max_terr_mm": mx,
+            "first_call_s": first_s, "capture_s": key_capture_s,
+            "pool_mb": key_pool_mb,
+            "host_syncs_replayed": len(syncs), "replayed_syncs_at": syncs,
+            "per_replayed_frame": per, "profiled_frames": P,
+            "per_frame_timed": blocks, "host_ms_per_frame": host,
+            "host_ms_rounds": rounds, "device_busy_share": busy,
+            "launches": {k_: ev[k_] for k_ in ("tile_gather",
+                                               "sparse_align")}}
+        print(f"# graphed {preset}: vo_scan_donated over frames 1-{n} (frame "
+              f"1 {first_s:.2f} s: its step and a capture of "
+              f"{key_capture_s:.2f} s, pool {key_pool_mb:.1f} MB; then "
+              f"replays): max |dt_wc| against phase 5's vo_step {dt:.3e} m "
+              f"(tol {GRAPH_TOL_M[preset]}); keyframes {kfs} (phase 5: "
+              f"{kfs_ref}); terr over frames {TIMED_FROM}-{n} median "
+              f"{med:.3f} mm, max {mx:.3f} mm; {len(syncs)} host syncs over "
+              f"frames 2-{n - P}; per replayed frame (frames {n - P + 1}-{n},"
+              f" profiler): K1 {per['tile_gather']}, K2 "
+              f"{per['sparse_align']}, host aten ops {per['host_aten_ops']} "
+              f"(eager vo_step, frames 1-{GRAPH_TIMED}: "
+              f"{blocks['vo_step']['host_aten_ops']:.0f}), device ops "
+              f"{per['device_ops']}, device {per['device_ms']:.3f} ms" + "".join(
+                  f"\n#   {x}" for x in syncs), flush=True)
+        print(f"# graphed {preset}: host ms per frame over frames "
+              f"1-{GRAPH_TIMED}, median of {GRAPH_ROUNDS} interleaved rounds:"
+              f" vo_step {host['vo_step']:.2f} (" + ", ".join(
+                  f"{x:.2f}" for x in rounds["vo_step"]) + f"), graphed "
+              f"{host['graphed']:.2f} (" + ", ".join(
+                  f"{x:.2f}" for x in rounds["graphed"]) + f"); device ms per "
+              f"frame (profiled) vo_step {blocks['vo_step']['device_ms']:.3f}"
+              f", graphed {blocks['graphed']['device_ms']:.3f}; device busy "
+              f"share vo_step {busy['vo_step']:.3f}, graphed "
+              f"{busy['graphed']:.3f}", flush=True)
+        assert np.isfinite(pos).all() and not failed, (preset, failed)
+        assert dt <= GRAPH_TOL_M[preset], (preset, dt)
+        assert kfs == kfs_ref and kfs, (preset, kfs, kfs_ref)
+        lim = LIMITS_MM[preset]
+        assert med <= lim[0] and mx <= lim[1], (preset, med, mx, lim)
+        assert not syncs, (preset, syncs)
+        assert ev["tile_gather"] == K1_PER_FRAME * P \
+            and ev["sparse_align"] == P, (preset, ev)
+        assert per["host_aten_ops"] < GRAPH_MAX_HOST_OPS, (preset, per)
+        del st
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def _mesh_world() -> int:
@@ -2481,10 +2662,17 @@ def main() -> int:
     phase(24)
     stages = _stage_phase(stage_snap, imgs, cam, cfgs["fast"], (ncx, ncy),
                           shape)
-    print(f"# phases 23-24 took {donated['seconds']:.1f} s and "
-          f"{stages['seconds']:.1f} s", flush=True)
 
-    # --- 20. the lines (after phases 21-24) ----------------------------------
+    # --- 25. the donated step as one CUDA graph, both presets --------------
+    phase(25)
+    graph = _graph_phase(seeded, imgs, {"fast": fast_outs,
+                                        "accurate": acc_outs},
+                         cam, cfgs, (ncx, ncy), shape, gt)
+    print(f"# phases 23-25 took {donated['seconds']:.1f} s, "
+          f"{stages['seconds']:.1f} s and {graph['seconds']:.1f} s",
+          flush=True)
+
+    # --- 20. the lines (after phases 21-25) ----------------------------------
     phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
@@ -2511,7 +2699,11 @@ def main() -> int:
              "fast_donated": (donated["fast"]["launches"],
                               donated["fast"]["n_frames"]),
              "accurate_donated": (donated["accurate"]["launches"],
-                                  donated["accurate"]["n_frames"])}
+                                  donated["accurate"]["n_frames"]),
+             "fast_graphed_scan": (graph["fast"]["launches"],
+                                   graph["fast"]["profiled_frames"]),
+             "accurate_graphed_scan": (graph["accurate"]["launches"],
+                                       graph["accurate"]["profiled_frames"])}
     # batched steps: launches per batched step, whatever the streams
     paths.update({f"streams_vmapped_b{B}": (r["launches"], r["steps"])
                   for B, r in streams_b["by_b"].items()})
@@ -2582,7 +2774,8 @@ def main() -> int:
                "driver_blender": driver_blender, "driver_euroc": driver_euroc,
                "checkpoint": ckpt, "live": live, "surface": surface,
                "streams": streams_b, "mesh": mesh, "donated": donated,
-               "stages": stages, "phase_start_s": phase_s,
+               "stages": stages, "graphed": graph,
+               "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     # the whole summary also as a file: the printed line outgrows the tail
     # of the output that a remote run returns

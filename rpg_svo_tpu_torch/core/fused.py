@@ -23,9 +23,13 @@ reference features as matches, no scrub), "pose" (the aligned pose kept),
 "struct", "kf" (no keyframe is ever taken) and "df" (no seed update).
 
 ``vo_step`` is purely functional; ``vo_step_donated`` (the JAX package's
-donated step, its throughput path) consumes its input state and writes the
-map pools in place, so that no step copies a pool; ``vo_scan`` and
-``vo_scan_donated`` loop over them.
+donated step, its throughput path) consumes its input state and writes
+every leaf of it in place, so that no step copies a pool and the state's
+storage is a fixed point of the step; ``vo_scan`` and ``vo_scan_donated``
+loop over them.  On the card the donated step is one CUDA graph, captured
+once per static signature and state storage and replayed per frame
+(core/graphed.py), as the JAX package's jitted donated step is one
+dispatch.
 
 The JAX step chooses branches with ``lax.cond``; here every branch runs
 and its result is kept or dropped with ``torch.where`` or a mask, so
@@ -39,6 +43,7 @@ bootstrapped ``FrameHandler``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -47,6 +52,7 @@ import torch.utils._pytree as pytree
 from rpg_svo_tpu_torch import is_batched, resolve_device
 from rpg_svo_tpu_torch.config import Config
 from rpg_svo_tpu_torch.core import depth_filter as df
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core import map as svomap
 from rpg_svo_tpu_torch.core.frame import scene_depth
 from rpg_svo_tpu_torch.core.local_ba import run_local_ba
@@ -406,14 +412,39 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape, inplace=False)
 
 
+def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
+                  ncx: int, ncy: int,
+                  img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
+    """The donated step, eager: ``_vo_step`` with the pools written in
+    place, then every other leaf of the new state copied into the input's
+    storage as the step's last ops (nothing reads the old leaves after
+    them: the step's reads of ``state.pad`` and ``state.feat_*`` are
+    ``torch.where`` copies).  Returns the input state, now the new one."""
+    new, out = _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
+                        inplace=True)
+
+    def put(old, now):
+        if now.shape != old.shape or now.dtype != old.dtype:
+            raise ValueError(f"a donated leaf {tuple(old.shape)} {old.dtype}"
+                             f" came back {tuple(now.shape)} {now.dtype}")
+        return old if now.data_ptr() == old.data_ptr() else old.copy_(now)
+    pytree.tree_map(put, state, new)
+    return state, out
+
+
 def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
                     ncx: int, ncy: int,
                     img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
     """``vo_step`` that consumes its input state, as the JAX package's
-    donated step does: the map pools are written in place, so the new
-    state's pool tensors are the input's storage and no step copies a pool
-    (the keyframe pyramid pool: 48 MB in the fast bench preset, 192 MB in
-    the accurate one).  The results equal ``vo_step``'s.
+    donated step does: every leaf of the state is written in place, so the
+    returned state is the input's storage and no step copies a pool (the
+    keyframe pyramid pool: 48 MB in the fast bench preset, 192 MB in the
+    accurate one).  The results equal ``vo_step``'s.
+
+    On the card the step runs as a CUDA graph (core/graphed.py): the first
+    call for a state's storage and static arguments runs it eagerly and
+    captures it, later calls replay it.  A capture that fails raises.  On
+    the CPU the step runs eagerly.
 
     The caller must not read the input state afterwards, nor any state
     that shares its tensors (a ``vo_step`` output shares the tensors its
@@ -423,14 +454,18 @@ def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
     if is_batched(img, *pytree.tree_leaves(state)):
         raise RuntimeError("vo_step_donated does not run under vmap: a "
                            "stream batch steps with vo_step")
-    new, out = _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
-                        inplace=True)
-    # the pools the step rewrote whole (masks, types, seed fields, poses)
-    # land in the input's storage too
-    m = pytree.tree_map(
-        lambda old, now: old if now.data_ptr() == old.data_ptr()
-        else old.copy_(now), state.m, new.m)
-    return new._replace(m=m), out
+    if not state.R.is_cuda:
+        return _donated_step(state, img, cam, cfg, ncx, ncy, img_shape)
+    return graphed.run(
+        functools.partial(_donated_step, cam=cam, cfg=cfg, ncx=ncx, ncy=ncy,
+                          img_shape=img_shape),
+        _static_args(cam, cfg, ncx, ncy, img_shape), state, img)
+
+
+def _static_args(cam, cfg: Config, ncx: int, ncy: int,
+                 img_shape: Tuple[int, int]) -> tuple:
+    """The donated step's static arguments, as its graph key holds them."""
+    return cam, cfg, int(ncx), int(ncy), tuple(img_shape)
 
 
 def vo_scan(state: VOState, imgs, cam, cfg: Config, ncx: int, ncy: int,
@@ -445,7 +480,10 @@ def vo_scan(state: VOState, imgs, cam, cfg: Config, ncx: int, ncy: int,
 
 def vo_scan_donated(state: VOState, imgs, cam, cfg: Config, ncx: int,
                     ncy: int, img_shape: Tuple[int, int]):
-    """``vo_scan`` with ``vo_step_donated``: consumes the input state."""
+    """``vo_scan`` with ``vo_step_donated``: consumes the input state.  On
+    the card every frame after the first is a replay of one CUDA graph, so
+    the loop dispatches none of the step's ops from Python; each frame's
+    outputs are copies, not the graph's own buffers."""
     outs = []
     for img in imgs:
         state, out = vo_step_donated(state, img, cam, cfg, ncx, ncy,

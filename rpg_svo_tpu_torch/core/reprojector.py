@@ -45,7 +45,8 @@ def attempt_budget(C: int, max_fts: int, factor: float = 2.0) -> int:
     return C
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded, as ops/tiles._level_table: a captured CUDA graph reads it
+@functools.cache
 def _cell_perm(C: int, device: str) -> torch.Tensor:
     """The fixed shuffled cell order (numpy seed 0, as the JAX package),
     made once per device."""

@@ -87,7 +87,8 @@ _K2_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, LevelTable,
 
 
 class _SparseAlign:
-    """K2 launcher; ``launches`` counts kernel launches (nothing else)."""
+    """K2 launcher; ``launches`` counts kernel launches (nothing else: not
+    a call recorded into a CUDA graph, nor a graph's replays)."""
 
     def __init__(self):
         self.launches = 0
@@ -144,7 +145,8 @@ class _SparseAlign:
                  int(min_level), int(n_iter), float(eps), N, out.data_ptr(),
                  cuda_build.raw_stream(dev))
         cuda_build.check(err, "sparse_align")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
         return _unpack(out)
 
     def batched(self, ref, cur, shapes, cam, R0, t0, px, f, depth, valid,
@@ -194,7 +196,8 @@ class _SparseAlign:
                  int(n_iter), float(eps), N, out.data_ptr(), outi.data_ptr(),
                  ss, B, cuda_build.raw_stream(dev))
         cuda_build.check(err, "sparse_align_batched")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
         return out, outi
 
 

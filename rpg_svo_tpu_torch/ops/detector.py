@@ -47,7 +47,7 @@ def fast_corner_mask(img: torch.Tensor, threshold: float = 20.0,
     corner = has_run(bits_b) | has_run(bits_d)
     H, W = img.shape
     inside = torch.zeros_like(corner)
-    inside[3:H - 3, 3:W - 3] = True
+    inside[3:H - 3, 3:W - 3].fill_(True)
     return corner & inside
 
 

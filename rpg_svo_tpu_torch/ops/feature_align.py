@@ -146,7 +146,7 @@ def align_features(cur_img, ref_patch_border: torch.Tensor,
         level = torch.zeros((N,), dtype=torch.int32, device=dev)
     if direction is None:
         direction = torch.zeros((N, 2), device=dev)
-        direction[:, 0] = 1.0
+        direction[:, 0].fill_(1.0)
     if is_1d is None:
         is_1d = torch.zeros((N,), dtype=torch.bool, device=dev)
     ref, dx, dy = _border_gradients(ref_patch_border)

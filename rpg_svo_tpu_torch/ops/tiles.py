@@ -50,7 +50,10 @@ def padded_layout(shapes: Sequence[Tuple[int, int]]):
     return Ws, row + TAIL_ROWS, np.asarray(offs, dtype=np.int32)
 
 
-@functools.lru_cache(maxsize=32)
+# unbounded: a captured CUDA graph (core/graphed.py) reads the table at
+# its address, so an evicted table would leave a graph reading freed
+# memory; one (3, L) table per layout and device lives for the process
+@functools.cache
 def _level_table(shapes: Tuple[Tuple[int, int], ...], device: str):
     """(W, H, row_off) per level as int32 tensors on ``device``, made once
     per layout so the per-frame path never copies constants to the card."""
@@ -165,7 +168,8 @@ _K1B_ARGTYPES = (ctypes.c_void_p, _LL, ctypes.c_int, LevelTable,
 
 
 class _TileGather:
-    """K1 launcher; ``launches`` counts kernel launches (nothing else)."""
+    """K1 launcher; ``launches`` counts kernel launches (nothing else: not
+    a call recorded into a CUDA graph, nor a graph's replays)."""
 
     def __init__(self):
         self.launches = 0
@@ -202,7 +206,8 @@ class _TileGather:
                  org.data_ptr(), n, int(tile_h), int(tile_w),
                  cuda_build.raw_stream(stack.device))
         cuda_build.check(err, "tile_gather")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
         return out, org[0], org[1]
 
     def batched(self, stack: torch.Tensor, shapes, level: torch.Tensor,
@@ -242,7 +247,8 @@ class _TileGather:
                  n, int(tile_h), int(tile_w), B,
                  cuda_build.raw_stream(stack.device))
         cuda_build.check(err, "tile_gather_batched")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
         return out, org
 
 

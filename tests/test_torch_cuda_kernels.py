@@ -12,11 +12,19 @@ sums in another order than its twin (which gathers with the plain
 ``gather_tiles_plain``, so no kernel under test computes the reference):
 poses within 1e-5 m and 1e-5, the same tracked count and the same
 iterations at every level.  The measured gap is about 2e-7.
+
+The donated step as a CUDA graph (core/graphed.py) against eager
+``vo_step`` over frames 81-100 of the bench scene: the same kernels in
+the same order, so bit-equal in the fast preset and within 1e-5 m in the
+accurate one (local BA's atomic sums); its capture under sync-debug
+"error", no new capture for a state stepped again, and K1 and K2 counted
+by the profiler's kernel events, which see a graph's replays.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch.config import bench_cfg
 from rpg_svo_tpu_torch.core import fused
@@ -395,3 +403,159 @@ def test_batched_sparse_align_kernel_matches_twin_per_stream(scene, B,
         assert torch.equal(Tk.R[0], Tu.R) and torch.equal(Tk.t[0], Tu.t)
         assert torch.equal(Hk[0], Hu) and torch.equal(ik[0], iu)
         assert int(nk[0]) == int(nu)
+
+
+# --- the donated step as one CUDA graph (core/graphed.py) -------------------
+GRAPH_FROM = 80        # eager vo_step to here, then frames 81-100 both ways
+GRAPH_FRAMES = 20      # the window holds the bench scene's keyframe 87
+GRAPH_ACC_TOL_M = 1e-5  # local BA's index_add_ atomics sum in any order
+
+
+def _clone_state(state):
+    return pytree.tree_map(torch.clone, state)
+
+
+def _kernel_events(fn):
+    """(K1, K2) kernel events on the card during fn (torch.profiler's raw
+    events, as chip_smoke._device_totals reads them)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return (sum("tile_gather_kernel" in n for n in names),
+            sum("sparse_align_kernel" in n for n in names))
+
+
+@pytest.fixture(scope="module")
+def graph_runs(scene):
+    """Per preset: the bench scene's eager vo_step from its seeding to
+    frame GRAPH_FROM (that state kept), its outputs over the next
+    GRAPH_FRAMES frames, and the graphed vo_scan_donated over the same
+    frames from a clone of the kept state."""
+    from rpg_svo_tpu_torch.core import graphed
+    ds, _ = scene
+    dev = need_cuda()
+    graphed.clear()
+    # a profile before any capture: CUPTI is set up when the graphs are made
+    _kernel_events(lambda: torch.zeros(1, device=dev).add_(1))
+    imgs = [ds.frame(i)[0] for i in range(GRAPH_FROM + GRAPH_FRAMES + 1)]
+    img0, depth0, T0 = ds.frame(0)
+    out = {}
+    for preset in ("fast", "accurate"):
+        cfg = bench_cfg(preset)
+        ncx, ncy = grid_dims(SHAPE[1], SHAPE[0], cfg.grid_size)
+        st = fused.seed_first_frame_with_depth(img0, T0.inverse(), depth0,
+                                               ds.cam, cfg, img_shape=SHAPE,
+                                               device=dev)
+        for i in range(1, GRAPH_FROM + 1):
+            st, _ = fused.vo_step(st, imgs[i], ds.cam, cfg, ncx, ncy, SHAPE)
+        start = _clone_state(st)
+        eager = []
+        for i in range(GRAPH_FROM + 1, GRAPH_FROM + GRAPH_FRAMES + 1):
+            st, o = fused.vo_step(st, imgs[i], ds.cam, cfg, ncx, ncy, SHAPE)
+            eager.append(o)
+        gst, graphed_outs = fused.vo_scan_donated(
+            _clone_state(start), imgs[GRAPH_FROM + 1:], ds.cam, cfg, ncx,
+            ncy, SHAPE)
+        out[preset] = dict(cfg=cfg, cam=ds.cam, grid=(ncx, ncy), start=start,
+                           eager=eager, graphed=graphed_outs, state=gst,
+                           imgs=imgs)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_graphed_donated_scan_equals_eager_vo_step(graph_runs, preset):
+    """vo_scan_donated on the card (one capture, then replays) over frames
+    81-100 against eager vo_step: the same kernels in the same order, so
+    bit-equal poses in the fast preset and within 1e-5 m in the accurate
+    one (local BA's atomic sums); the same keyframes (87 among them)."""
+    r = graph_runs[preset]
+    kf_e = [i for i, o in enumerate(r["eager"], GRAPH_FROM + 1)
+            if bool(o.is_keyframe)]
+    kf_g = [i for i, o in enumerate(r["graphed"], GRAPH_FROM + 1)
+            if bool(o.is_keyframe)]
+    assert kf_g == kf_e and 87 in kf_g, (kf_g, kf_e)
+    for e, g in zip(r["eager"], r["graphed"]):
+        assert not bool(g.failed)
+        assert int(e.n_matches) == int(g.n_matches)
+        if preset == "fast":
+            assert torch.equal(e.t_wc, g.t_wc) and torch.equal(e.R_fw, g.R_fw)
+        else:
+            assert float(torch.abs(e.t_wc - g.t_wc).max()) <= GRAPH_ACC_TOL_M
+
+
+@pytest.mark.cuda
+def test_second_call_with_the_same_state_makes_no_capture(graph_runs):
+    """The scan's state keeps the storage of every leaf, so stepping it
+    again replays the scan's graph (no new graph); a clone of it is
+    another key, and its first step captures another graph."""
+    from rpg_svo_tpu_torch.core import graphed
+    r = graph_runs["fast"]
+    ncx, ncy = r["grid"]
+    st = r["state"]
+    ptrs = [x.data_ptr() for x in pytree.tree_leaves(st)]
+    n = len(graphed.graphs())
+    st2, _ = fused.vo_step_donated(st, r["imgs"][1], r["cam"], r["cfg"],
+                                   ncx, ncy, SHAPE)
+    assert st2 is st and len(graphed.graphs()) == n
+    assert [x.data_ptr() for x in pytree.tree_leaves(st)] == ptrs
+    fused.vo_step_donated(_clone_state(st), r["imgs"][2], r["cam"], r["cfg"],
+                          ncx, ncy, SHAPE)
+    assert len(graphed.graphs()) == n + 1
+
+
+@pytest.mark.cuda
+def test_graph_replay_launches_each_kernel(graph_runs):
+    """A capture call launches K1 four times and K2 once (its eager step;
+    the capture launches nothing), a replay as many by the profiler's
+    kernel events, and the wrappers count no replay."""
+    r = graph_runs["fast"]
+    ncx, ncy = r["grid"]
+    st = _clone_state(r["start"])
+    counts = (tiles.tile_gather_kernel.launches,
+              align_kernel.sparse_align_kernel.launches)
+
+    def step(i):
+        return lambda: fused.vo_step_donated(st, r["imgs"][i], r["cam"],
+                                             r["cfg"], ncx, ncy, SHAPE)
+    assert _kernel_events(step(GRAPH_FROM + 1)) == (4, 1)
+    assert (tiles.tile_gather_kernel.launches,
+            align_kernel.sparse_align_kernel.launches) \
+        == (counts[0] + 4, counts[1] + 1)
+    assert _kernel_events(step(GRAPH_FROM + 2)) == (4, 1)
+    assert (tiles.tile_gather_kernel.launches,
+            align_kernel.sparse_align_kernel.launches) \
+        == (counts[0] + 4, counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_graph_capture_runs_under_sync_debug_error(graph_runs):
+    """The step's capture passes under the caller's sync-debug "error"
+    mode; a step that reads a value back raises in its capture (no eager
+    fallback), keeps no graph and restores the caller's mode."""
+    from collections import namedtuple
+    from rpg_svo_tpu_torch.core import graphed
+    r = graph_runs["accurate"]
+    ncx, ncy = r["grid"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.vo_step_donated(_clone_state(r["start"]), r["imgs"][1],
+                              r["cam"], r["cfg"], ncx, ncy, SHAPE)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    Out = namedtuple("Out", "total")
+
+    def reads_back(state, img):
+        state.add_(float(img.sum()))
+        return state, Out(state.sum())
+    x = torch.zeros(4, device=r["imgs"][1].device)
+    n = len(graphed.graphs())
+    with pytest.raises(RuntimeError):
+        graphed.run(reads_back, ("reads_back",), x, r["imgs"][1])
+    assert len(graphed.graphs()) == n
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -6,11 +6,17 @@ The port's own run of the whole-step scene (tests/_torch_port.py,
 ``FULL_KW``), seeded by the port, over frames 1-8 (a keyframe at frame 6):
 the donated step from a clone of the seeding equals ``vo_step`` bit for
 bit, outputs and states, in both presets (local BA runs in the accurate
-one); its pools keep their storage from step to step, while ``vo_step``
-leaves its input equal to a clone taken before the step.  Against JAX:
-frames 6 and 7 from the port's state after frame 5, converted, at the
-whole-step tolerances of tests/test_torch_fused.py (1e-5 m after one
-step, 1e-4 after two)."""
+one); every leaf of its state keeps its storage from step to step, while
+``vo_step`` leaves its input equal to a clone taken before the step.
+Against JAX: frames 6 and 7 from the port's state after frame 5,
+converted, at the whole-step tolerances of tests/test_torch_fused.py
+(1e-5 m after one step, 1e-4 after two).
+
+On the card the donated step is a CUDA graph keyed by the state's storage
+(core/graphed.py; tests/test_torch_cuda_kernels.py runs it there): here,
+the key's parts, that a CPU call builds no graph, and that the step
+dispatches no op that builds a tensor from host data (on the card a
+pageable copy to the device, which a capture refuses)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +28,7 @@ from rpg_svo_tpu import config as jconfig
 from rpg_svo_tpu.core import fused as jfused
 from rpg_svo_tpu_torch import config as tconfig
 from rpg_svo_tpu_torch.core import fused as tfused
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core import map as tmap
 from rpg_svo_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 from rpg_svo_tpu_torch.geometry.se3 import SE3 as TSE3
@@ -45,7 +52,7 @@ def _equal(a, b) -> bool:
 
 
 def _ptrs(state):
-    return [x.data_ptr() for x in pytree.tree_leaves(state.m)]
+    return [x.data_ptr() for x in pytree.tree_leaves(state)]
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +71,7 @@ def _imgs(scene):
 def runs(scene):
     """Per preset: the seeding, then N_FRAMES of vo_step (each checked to
     leave its input as it was) and of vo_step_donated from a clone of the
-    seeding (the pools' data pointers after each step)."""
+    seeding (the data pointers of its leaves after each step)."""
     out = {}
     ncx, ncy = scene["fh"].ncx, scene["fh"].ncy
     imgs = _imgs(scene)
@@ -110,8 +117,9 @@ def test_donated_step_equals_vo_step(runs, preset):
 
 @pytest.mark.parametrize("preset", ["fast", "accurate"])
 def test_donated_step_writes_the_pools_in_place(runs, preset):
-    """The donated step's pools are its input's storage after every step;
-    vo_step leaves its input as it was."""
+    """Every leaf of the donated step's state, the pools and the frame's
+    own leaves (pyramid, pose, feature table, counters), is its input's
+    storage after every step; vo_step leaves its input as it was."""
     r = runs[preset]
     assert all(r["same_storage"]), r["same_storage"]
     assert all(r["kept"]), r["kept"]
@@ -177,3 +185,54 @@ def test_donated_step_raises_under_vmap(scene, runs):
                                       scene["fh"].ncx, scene["fh"].ncy, SHAPE)
     with pytest.raises(RuntimeError, match="vmap"):
         torch.func.vmap(step)(states, imgs)
+
+
+def test_graph_key_follows_storage_and_static_arguments(scene, runs):
+    """The graph key changes with a cloned state, another configuration,
+    another camera and another image shape; a donated step keeps its
+    state's key; a CPU call builds no graph."""
+    r = runs["fast"]
+    cam, ncx, ncy = scene["cam"], scene["fh"].ncx, scene["fh"].ncy
+    img = _imgs(scene)[0]
+
+    def key(state, img=img, cam=cam, cfg=r["cfg"], shape=SHAPE):
+        return graphed.graph_key(
+            tfused._static_args(cam, cfg, ncx, ncy, shape), state, img)
+    graphed.clear()
+    st = _clone(r["states"][0])
+    k = key(st)
+    assert key(_clone(st)) != k
+    assert key(st, cfg=runs["accurate"]["cfg"]) != k
+    assert key(st, cfg=r["cfg"].replace(ablate=("df",))) != k
+    assert key(st, cam=cam._replace(fx=cam.fx + 1.0)) != k
+    assert key(st, img=img[:-8]) != k
+    assert key(st, img=img.to(torch.float64)) != k
+    assert key(st) == k
+    st2, _ = tfused.vo_step_donated(st, img, cam, r["cfg"], ncx, ncy, SHAPE)
+    assert st2 is st and key(st2) == k
+    assert graphed.graphs() == []
+
+
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_donated_step_builds_no_tensor_from_host_data(scene, runs, preset):
+    """A donated step (frame 2, after one step has made the device tables)
+    dispatches no ``lift_fresh``: no tensor made from host data, which on
+    the card is a pageable copy that a CUDA graph's capture refuses."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    r = runs[preset]
+    st, img = _clone(r["states"][1]), _imgs(scene)[1]
+    with Log() as log:
+        tfused.vo_step_donated(st, img, scene["cam"], r["cfg"],
+                               scene["fh"].ncx, scene["fh"].ncy, SHAPE)
+    assert len(log.ops) > 1000
+    assert not [op for op in log.ops if "lift_fresh" in op]
