@@ -28,7 +28,9 @@ one, or without the port beside it.  Phases, each fatal on failure:
    does: median and max translation error over frames 41-120 within the
    limits, no failed frame, exactly 4 K1 and 1 K2 launches per frame, 0
    host syncs in one keyframe step and one other step, device ops and
-   device time of each;
+   device time of each (phases 4-5 run the step's eager body,
+   ``fused._vo_step``, out of place: the reference of every graphed
+   phase, its launches counted by the wrappers);
 6. the fast step on the CPU (plain twins) over the 20 frames holding the
    first keyframe, from the card's state before them: equal keyframe
    decisions, max |dt_wc| <= 1e-3 m;
@@ -43,9 +45,10 @@ one, or without the port beside it.  Phases, each fatal on failure:
    first keyframe runs local BA;
 9. the ``bench.py --bootstrap`` protocol (fast): ``add_image`` from frame
    0 at stride 5 until the default stage, ``state_from_handler``, then
-   ``vo_step`` to frame 440: the bootstrap frame, its inliers and the
-   Sim3-aligned ATE median over bench's window within the JAX CPU figure
-   +10%;
+   ``vo_step`` (graphed) to frame 440: the bootstrap frame, its inliers
+   and the Sim3-aligned ATE median over bench's window within the JAX CPU
+   figure +10%; 4 K1 and 1 K2 kernel events per frame over the last 5
+   (the profiler's);
 10. relocalization: a blank frame fails, the next frame relocalizes, then
    ``relocalize_frame_at_pose`` and ``global_ba``;
 11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
@@ -98,27 +101,38 @@ one, or without the port beside it.  Phases, each fatal on failure:
    select_top_k (positions to 1e-3 px, discrete results equal); the
    dashboard and the plots do not run here (no matplotlib on the card's
    machine);
-20. (run last, after phases 21-25) one JSON line of kernel
-   measurements (launches per frame on every path, the batched launches
-   of phase 21, the donated steps of phase 23 and the graphed scans of
-   phase 25, those three by the profiler's kernel events), the card's
-   line, and the result;
+20. (run last, after phases 21-26) one JSON line of kernel
+   measurements (launches per frame on every path; on the graphed paths
+   of phases 9, 21-23, 25 and 26 the profiler's kernel events per
+   replayed frame, batched step or call), the card's line, and the
+   result;
 21. camera streams in one step: ``parallel.streams.vmapped_vo_step``
-   (fast, 752x480) over 4 streams, stream b from phase 5's state after
-   frame 10 b, each tracking its next 20 frames: no failed frame, each
-   stream within 1e-3 m of its single-stream run with equal keyframes,
-   exactly 4 K1 and 1 K2 launches per batched step (the wrapper counts and
-   the profiler's), 0 host syncs; host ms per batched step (the median of
-   3 interleaved rounds of 10 steps), stream-frames per second, device ops
-   and launches at B = 1, 2, 4 and 8 beside one stream's step without vmap
-   timed in the same rounds; the batched K1 and K2 against their twins
+   (fast, 752x480; one CUDA graph per B, replayed) over 4 streams, stream
+   b from phase 5's state after frame 10 b, each tracking its next 20
+   frames: no failed frame, each stream within 1e-3 m of its
+   single-stream run with equal keyframes, 4 K1 and 1 K2 launches in the
+   capture call (the wrappers) and kernel events per replayed batched
+   step (the profiler's); 4 streams from frames 50-80 over 10 frames,
+   keyframe 87 in the last, graphed within 1e-5 m of the eager batched
+   step with equal keyframes; no op of the eager batched step takes
+   vmap's per-stream fallback; host ms per batched step (the median of 5
+   interleaved rounds of 10 replays), stream-frames per second, device
+   ops and ms, host aten ops, kernel events, 0 host syncs, slot MB,
+   capture s and pool MB at B = 1, 2, 4 and 8, beside one stream's
+   graphed ``vo_step`` timed in the same rounds and one round of the
+   eager batched step at B = 8; the batched K1 and K2 against their twins
    per stream, with their device times;
 22. the mesh programs on NCCL: a subprocess starts a process group of one
    rank on the card (``init_multihost``, ``make_mesh``) and holds
    ``sharded_pose_optimize``, ``sharded_seed_update``,
-   ``distributed_ba_solve``, ``multistream_step`` and 3 frames of
-   ``vo_step_mesh`` to their single-device counterparts on the card
-   (1e-6); NCCL across GPUs is not run (one card);
+   ``distributed_ba_solve``, ``multistream_step`` and 5 frames of
+   ``vo_step_mesh`` (graphed: its first call runs the step and captures
+   it with its NCCL collectives, later calls replay them) to their
+   single-device counterparts on the card (1e-6, graphed ``vo_step`` and
+   the eager body); collectives logged on the first call only, a
+   replay's kernel events (NCCL, copies, K1, K2) beside one of
+   ``vo_step``, the mesh in the slot's key; NCCL across GPUs is not run
+   (one card);
 23. the donated step ``vo_step_donated`` (a CUDA graph on the card: its
    first call for a state's storage runs the step and captures it, later
    calls replay it) in both presets, from a clone of phase 5's state
@@ -127,8 +141,8 @@ one, or without the port beside it.  Phases, each fatal on failure:
    K2 kernel events per frame (the profiler's: the wrappers count no
    replay), 0 host syncs per frame, every state leaf's data pointer
    unchanged, ``vo_scan_donated`` over the window within 1e-5 m of the
-   step loop; then the keyframe step and the next by eager ``vo_step`` and
-   by a replay of ``vo_step_donated`` in turns: host ms (the replay's is
+   step loop; then the keyframe step and the next by the eager step body
+   and by a replay of ``vo_step_donated`` in turns: host ms (the replay's is
    the graph's launch and its device time, no longer the eager donated
    step's dispatch), peak device memory above the input, and device ops
    and device ms of 5 profiles each way in turns (median and range; a
@@ -146,14 +160,27 @@ one, or without the port beside it.  Phases, each fatal on failure:
 25. the donated step as one CUDA graph: ``vo_scan_donated`` in both
    presets over frames 1-120 from a clone of the seeded state (frame 1
    captures, the rest replay): within 1e-6 m (fast) and 1e-5 m
-   (accurate) of phase 5's eager ``vo_step`` at every frame, the same
+   (accurate) of phase 5's eager step at every frame, the same
    keyframes, the limits of phase 5; 0 host syncs over the replayed
    frames; per replayed frame, from the profiler, 4 K1 and 1 K2 kernel
    events, under 50 host-side aten ops (eager: ~9k), device ops and
    device ms; capture seconds and the graph's pool MB; host ms per frame
-   of eager ``vo_step`` and of replays over frames 1-10, the median of 5
+   of the eager body and of replays over frames 1-10, the median of 5
    interleaved rounds (every round printed), and each way's device busy
-   share.
+   share, with graphed ``vo_step`` (a copy into its slot, a replay, a
+   copy out) timed in the same rounds;
+26. the entries that keep their input as CUDA graphs: every graph and
+   slot dropped, then ``vo_scan`` in both presets over frames 1-120 from
+   the seeded state (one copy into its slot, frame 1 a capture, the rest
+   replays, one copy out): within 1e-6 m (fast) and 1e-5 m (accurate) of
+   phase 5 at every frame, the same keyframes, the limits of phase 5, 0
+   host syncs, the input state equal to a clone of it, the capture call's
+   4 K1 and 1 K2 launches (the wrappers); a second ``vo_scan`` from a
+   clone makes no capture and gives the same outputs; per replayed frame
+   inside ``vo_scan`` 4 K1 and 1 K2 kernel events and under 50 host aten
+   ops; one ``vo_step`` call: 0 host syncs, 4 K1 and 1 K2 events, under
+   250 host aten ops, its copy in and copy out alone (host aten ops and
+   device us); slot MB, capture s and pool MB.
 """
 
 from __future__ import annotations
@@ -277,8 +304,9 @@ STREAMS_B = 4
 STREAM_FRAMES = 20
 STREAM_BS = (1, 2, 4, 8)       # the batch sizes timed
 STREAM_WARM = 3                # steps at each B before the timed ones
-STREAM_TIMED, STREAM_ROUNDS = 10, 3   # steps per timed block, rounds
-MESH_FRAMES = 3                # phase 22: vo_step_mesh frames
+STREAM_TIMED, STREAM_ROUNDS = 10, 5   # replays per timed block, rounds
+STREAM_GRAPH_TOL_M = 1e-5      # graphed batched step against the eager one
+MESH_FRAMES = 5                # phase 22: vo_step_mesh frames
 DONATED_PAST = 5               # phase 23: frames past the first keyframe
 DONATED_TOL_M = 1e-5           # against phase 5 (local BA sums by atomics)
 DONATED_TIMED = 3              # phase 23: timed calls of each step each way
@@ -295,12 +323,17 @@ STAGE_ROUNDS = 3
 STAGE_WARM = 3
 STAGE_TIMED = 10
 # phase 25: the donated step as a CUDA graph over frames 1-PRESET_FRAMES;
-# against phase 5's eager vo_step: the same kernels in the same order
+# against phase 5's eager step body: the same kernels in the same order
 # (fast), local BA's atomic sums (accurate)
 GRAPH_TOL_M = {"fast": 1e-6, "accurate": 1e-5}
 GRAPH_PROFILED = 5             # the last frames, profiled
 GRAPH_MAX_HOST_OPS = 50        # aten ops dispatched per replayed frame
+# aten ops of one call of a graphed entry that keeps its input (vo_step,
+# vmapped_vo_step): the replay's 22 plus the copies of ~60 state leaves in
+# and out
+GRAPH_MAX_CALL_OPS = 250
 GRAPH_ROUNDS, GRAPH_TIMED = 5, 10   # host ms: rounds, frames per round
+KEPT_AGAIN = 3                 # phase 26: frames of the second vo_scan
 MESH_TOL = 1e-6                # phase 22: mesh programs against one device
 MESH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -483,11 +516,12 @@ def _device_us(torch, fn, sym: str, reps: int = 20) -> float:
 
 
 def _graph_us(torch, fn, reps: int = 20, replays: int = 5) -> float:
-    """Device time (us) per call of fn, one kernel launch each: fn captured
-    `reps` times in a CUDA graph, the graph replayed and timed with CUDA
-    events (median over `replays`); no host work between the launches.
-    Phase 21 times the batched kernels so: late in the smoke, after its
-    many profiles, the profiler may return no event for them at all."""
+    """Device time (us) per call of fn: fn captured `reps` times in a CUDA
+    graph, the graph replayed and timed with CUDA events (median over
+    `replays`); no host work between the launches.  Phases 21 and 26 time
+    short device work so (the batched kernels, a state's copies): late in
+    the smoke, after its many profiles, the profiler may return no event
+    for it at all."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -552,6 +586,8 @@ def _raw_profile(torch, fn):
                  "tile_gather": sum("tile_gather_kernel" in n for n in names),
                  "sparse_align": sum("sparse_align_kernel" in n
                                      for n in names),
+                 "nccl_kernels": sum("nccl" in n.lower() for n in names),
+                 "memcpy": sum("memcpy" in n.lower() for n in names),
                  "host_aten_ops": host}
 
 
@@ -599,6 +635,15 @@ def _cfg(preset: str):
     """The bench configuration of a preset (bench.py's make_cfg)."""
     from rpg_svo_tpu_torch.config import bench_cfg
     return bench_cfg(preset)
+
+
+def _eager_step(state, img, cam, cfg, ncx, ncy, shape):
+    """The step's eager body, out of place: what ``vo_step`` runs on the
+    CPU, and on the card the reference of its graphs (every op dispatched
+    from Python, so the wrappers count every kernel launch)."""
+    from rpg_svo_tpu_torch.core import fused
+    return fused._vo_step(state, img, cam, cfg, ncx, ncy, shape,
+                          inplace=False)
 
 
 class _Scene(NamedTuple):
@@ -1199,15 +1244,19 @@ def _kernel_counts(prof) -> dict:
 
 
 def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
-    """Phase 21: B camera streams in one step on the card.  Stream b starts
-    from the fast run's state after frame STREAM_EVERY * b.  First the
-    batched K1 and K2 against their twins per stream; then B = STREAMS_B
-    over STREAM_FRAMES frames against each stream's single-stream run
-    (phase 5), a batch of two holding the first keyframe, the ops taking
-    vmap's per-stream fallback, and host ms per batched step, device ops
-    and launches at every B of STREAM_BS."""
+    """Phase 21: B camera streams in one step on the card, the batched step
+    a CUDA graph per B (its first call captures, later calls replay).
+    Stream b starts from the fast run's state after frame STREAM_EVERY *
+    b.  First the batched K1 and K2 against their twins per stream; then B
+    = STREAMS_B over STREAM_FRAMES frames against each stream's
+    single-stream run (phase 5), a batch of B holding the first keyframe
+    graphed against the eager batched step, the ops of the eager batched
+    step taking vmap's per-stream fallback, and host ms per replayed
+    batched step, device ops, kernel events, host aten ops, slot and pool
+    MB at every B of STREAM_BS, beside one stream's graphed ``vo_step``
+    and one round of the eager batched step at the largest B."""
     import torch
-    from rpg_svo_tpu_torch.core import fused
+    from rpg_svo_tpu_torch.core import fused, graphed
     from rpg_svo_tpu_torch.core.map import TYPE_DELETED
     from rpg_svo_tpu_torch.geometry.se3 import SE3
     from rpg_svo_tpu_torch.ops import align_kernel, tiles
@@ -1230,10 +1279,15 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
                                        shape)
 
     def advance(st, c, j):
-        """The state after step j of config c: B streams batched, or one
-        stream (frame 1 + j) without vmap for "one"."""
+        """The state after step j of config c: B streams batched (graphed),
+        one stream (frame 1 + j) by graphed vo_step for "one", the eager
+        batched step at the largest B for "eager"."""
         if c == "one":
             return fused.vo_step(st, imgs[j], cam, cfg, ncx, ncy, shape)[0]
+        if c == "eager":
+            B = max(STREAM_BS)
+            return streams._vmapped_step(st, frames(B, j), cam, cfg, ncx,
+                                         ncy, shape)[0]
         return step(st, c, j)[0]
 
     # --- the batched kernels against their twins, per stream, first: the
@@ -1309,15 +1363,25 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
           f"equal counts and iterations, device {k2_us:.2f} us per launch "
           f"(one stream: {k2_us_1:.2f} us); CUDA-graph replays",
           flush=True)
-    # --- B streams over STREAM_FRAMES frames against their single runs ----
+    # --- B streams over STREAM_FRAMES frames against their single runs:
+    # the first step makes B's slot and captures its graph (the wrappers
+    # count that call's eager step), the rest replay (profiler events) ----
     B = STREAMS_B
-    st = start(B)
     _reset_counts()
-    outs = []
-    for j in range(STREAM_FRAMES):
-        st, o = step(st, B, j)
-        outs.append(o)
+    st, o0 = step(start(B), B, 0)
     launches = _read_counts()
+    slot_b = graphed.slots()[-1]
+
+    def steps(st, B, j0, j1):
+        outs = []
+        for j in range(j0, j1):
+            st, o = step(st, B, j)
+            outs.append(o)
+        return st, outs
+    (st, rest), ev = _raw_profile(torch, lambda: steps(st, B, 1,
+                                                       STREAM_FRAMES))
+    outs = [o0] + rest
+    replay_events = {k: ev[k] for k in ("tile_gather", "sparse_align")}
     t_wc = torch.stack([o.t_wc for o in outs]).cpu().numpy()   # (T, B, 3)
     kf = torch.stack([o.is_keyframe for o in outs]).cpu().numpy()
     failed = torch.stack([o.failed for o in outs]).cpu().numpy()
@@ -1331,48 +1395,71 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
         kf_equal &= ref_kf == [bool(x) for x in kf[:, b]]
         kf_frames[b] = [first + 1 + j for j in range(STREAM_FRAMES)
                         if kf[j, b]]
-    print(f"# streams: {B} streams x {STREAM_FRAMES} frames in one "
-          f"vmapped step each: max |dt_wc| against the single-stream runs "
-          f"{dt:.3e} m (tol {CPU_TOL_M}); keyframes equal: {kf_equal} "
-          f"{kf_frames}; failed {int(failed.sum())}; launches {launches}",
-          flush=True)
+    print(f"# streams: {B} streams x {STREAM_FRAMES} frames in one graphed "
+          f"vmapped step each (the first a capture of {slot_b[2]:.2f} s, "
+          f"slot {slot_b[1]:.1f} MB, pool {slot_b[3]:.1f} MB): max |dt_wc| "
+          f"against the single-stream runs {dt:.3e} m (tol {CPU_TOL_M}); "
+          f"keyframes equal: {kf_equal} {kf_frames}; failed "
+          f"{int(failed.sum())}; wrapper launches of the capture call "
+          f"{launches}; kernel events over the {STREAM_FRAMES - 1} replays "
+          f"{replay_events}", flush=True)
     assert not failed.any(), "streams: a frame failed"
     assert kf_equal and dt <= CPU_TOL_M, (dt, kf_frames)
-    assert launches == {"tile_gather": K1_PER_FRAME * STREAM_FRAMES,
-                        "sparse_align": STREAM_FRAMES}, launches
+    assert launches == {"tile_gather": K1_PER_FRAME, "sparse_align": 1}, \
+        launches
+    assert replay_events == {
+        "tile_gather": K1_PER_FRAME * (STREAM_FRAMES - 1),
+        "sparse_align": STREAM_FRAMES - 1}, replay_events
 
-    # --- a keyframe inside the batch: the streams from frames 70 and 80
-    # over the next STREAM_EVERY frames, the first keyframe (87) in one --
-    kb = [STREAM_EVERY * (max(STREAM_BS) - 1), STREAM_EVERY * max(STREAM_BS)]
-    sk = streams.stack_states([snaps[k] for k in kb])
-    kf_outs = []
-    for j in range(STREAM_EVERY):
-        sk, o = streams.vmapped_vo_step(
-            sk, torch.stack([imgs[k + j] for k in kb]), cam, cfg, ncx, ncy,
-            shape)
-        kf_outs.append(o)
-    kb_t = torch.stack([o.t_wc for o in kf_outs]).cpu().numpy()
-    kb_kf = torch.stack([o.is_keyframe for o in kf_outs]).cpu().numpy()
-    kb_dt = max(float(np.abs(kb_t[:, i] - np.stack(
-        [o.t_wc.cpu().numpy() for o in fast_outs[k:k + STREAM_EVERY]])).max())
-        for i, k in enumerate(kb))
-    kb_frames = {k: [k + 1 + j for j in range(STREAM_EVERY) if kb_kf[j, i]]
-                 for i, k in enumerate(kb)}
+    # --- a keyframe inside the batch: B streams from frames 50-80 over the
+    # next STREAM_EVERY frames, the first keyframe (87) in the last;
+    # graphed against the eager batched step and against the single runs --
+    kb = [STREAM_EVERY * (max(STREAM_BS) - B + 1 + i) for i in range(B)]
     kb_want = {k: [k + 1 + j for j in range(STREAM_EVERY)
                    if bool(fast_outs[k + j].is_keyframe)] for k in kb}
-    print(f"# streams: a batch of 2 from frames {kb} over {STREAM_EVERY} "
-          f"frames: keyframes {kb_frames} (single runs {kb_want}), max "
-          f"|dt_wc| {kb_dt:.3e} m", flush=True)
-    assert kb_frames == kb_want and any(kb_frames.values()), kb_frames
-    assert kb_dt <= CPU_TOL_M, kb_dt
+    kb_res = {}
+    for way, fn in (("graphed", streams.vmapped_vo_step),
+                    ("eager", streams._vmapped_step)):
+        sk = streams.stack_states([snaps[k] for k in kb])
+        kf_outs = []
+        for j in range(STREAM_EVERY):
+            sk, o = fn(sk, torch.stack([imgs[k + j] for k in kb]), cam, cfg,
+                       ncx, ncy, shape)
+            kf_outs.append(o)
+        kb_t = torch.stack([o.t_wc for o in kf_outs]).cpu().numpy()
+        kb_kf = torch.stack([o.is_keyframe for o in kf_outs]).cpu().numpy()
+        kb_res[way] = {
+            "t_wc": kb_t,
+            "keyframes": {k: [k + 1 + j for j in range(STREAM_EVERY)
+                              if kb_kf[j, i]] for i, k in enumerate(kb)},
+            "max_dt_m": max(float(np.abs(kb_t[:, i] - np.stack(
+                [o.t_wc.cpu().numpy() for o in
+                 fast_outs[k:k + STREAM_EVERY]])).max())
+                for i, k in enumerate(kb))}
+    kb_gap = float(np.abs(kb_res["graphed"]["t_wc"]
+                          - kb_res["eager"]["t_wc"]).max())
+    kb_frames = kb_res["graphed"]["keyframes"]
+    kb_dt = kb_res["graphed"]["max_dt_m"]
+    print(f"# streams: a batch of {B} from frames {kb} over {STREAM_EVERY} "
+          f"frames: keyframes graphed {kb_frames}, eager "
+          f"{kb_res['eager']['keyframes']} (single runs {kb_want}); graphed "
+          f"against the eager batched step max |dt_wc| {kb_gap:.3e} m (tol "
+          f"{STREAM_GRAPH_TOL_M}); against the single runs {kb_dt:.3e} / "
+          f"{kb_res['eager']['max_dt_m']:.3e} m", flush=True)
+    assert kb_frames == kb_want == kb_res["eager"]["keyframes"] \
+        and any(kb_frames.values()), (kb_frames, kb_want)
+    assert kb_gap <= STREAM_GRAPH_TOL_M, kb_gap
+    assert max(kb_dt, kb_res["eager"]["max_dt_m"]) <= CPU_TOL_M, kb_res
 
-    # --- ops that take vmap's per-stream fallback (a loop over streams) ---
+    # --- ops that take vmap's per-stream fallback (a loop over streams),
+    # in the eager batched step (a replay dispatches no op) ---------------
     flag = torch._C._functorch._set_vmap_fallback_warning_enabled
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         flag(True)
         try:
-            step(st, B, STREAM_FRAMES)
+            streams._vmapped_step(st, frames(B, STREAM_FRAMES), cam, cfg, ncx,
+                                  ncy, shape)
         finally:
             flag(False)
     fallbacks = sorted({str(w.message).split("batching rule for ")[1]
@@ -1382,74 +1469,100 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
           flush=True)
     assert not fallbacks, fallbacks
 
-    # --- host ms per step at each B and for one stream without vmap -------
-    # STREAM_ROUNDS rounds; each times STREAM_TIMED steps of every config in
-    # an order rotated by one per round, so the host clock's drift falls on
-    # every B alike; a config's figure is the median of its rounds
+    # --- host ms per step at each B and for one stream (graphed vo_step) --
+    # STREAM_ROUNDS rounds; each times STREAM_TIMED replays of every config
+    # in an order rotated by one per round, so the host clock's drift falls
+    # on every B alike; a config's figure is the median of its rounds.  The
+    # eager batched step at the largest B is timed once, after round 0.
     configs = ("one",) + tuple(STREAM_BS)
-    runs = {}
-    for c in configs:
-        st, j = snaps[0] if c == "one" else start(c), 0
+    eager_b = max(STREAM_BS)
+    runs, slot_of = {}, {}
+    for c in configs + ("eager",):
+        st, j = snaps[0] if c == "one" else start(
+            eager_b if c == "eager" else c), 0
         for _ in range(STREAM_WARM):
             st, j = advance(st, c, j), j + 1
         runs[c] = [st, j]
-    rounds = {c: [] for c in configs}
-    launched = {c: {"tile_gather": 0, "sparse_align": 0} for c in configs}
+        if c != "eager":
+            slot_of[c] = graphed.slots()[-1]
+    rounds = {c: [] for c in configs + ("eager",)}
+
+    def timed(c):
+        st, j = runs[c]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(STREAM_TIMED):
+            st, j = advance(st, c, j), j + 1
+        torch.cuda.synchronize()
+        rounds[c].append((time.perf_counter() - t0) / STREAM_TIMED * 1e3)
+        runs[c] = [st, j]
+        return _read_counts()
     for r in range(STREAM_ROUNDS):
         for c in configs[r % len(configs):] + configs[:r % len(configs)]:
-            st, j = runs[c]
-            torch.cuda.synchronize()
-            _reset_counts()
-            t0 = time.perf_counter()
-            for _ in range(STREAM_TIMED):
-                st, j = advance(st, c, j), j + 1
-            torch.cuda.synchronize()
-            rounds[c].append((time.perf_counter() - t0) / STREAM_TIMED * 1e3)
-            runs[c] = [st, j]
-            counts = _read_counts()
-            assert counts == {"tile_gather": K1_PER_FRAME * STREAM_TIMED,
-                              "sparse_align": STREAM_TIMED}, (c, counts)
-            for k in launched[c]:
-                launched[c][k] += counts[k]
-    med = {c: float(np.median(rounds[c])) for c in configs}
+            counts = timed(c)
+            assert counts == {"tile_gather": 0, "sparse_align": 0}, \
+                (c, "a replay dispatched a kernel", counts)
+        if r == 0:
+            eager_launches = timed("eager")
+            assert eager_launches == {
+                "tile_gather": K1_PER_FRAME * STREAM_TIMED,
+                "sparse_align": STREAM_TIMED}, eager_launches
+    med = {c: float(np.median(v)) for c, v in rounds.items()}
     single_ms = med["one"]
-    print(f"# one stream without vmap: {single_ms:.1f} host ms per step "
-          f"(median of rounds {[round(x, 1) for x in rounds['one']]})",
-          flush=True)
+    print(f"# one stream, graphed vo_step: {single_ms:.2f} host ms per step "
+          f"(median of rounds {[round(x, 2) for x in rounds['one']]}); "
+          f"eager batched step at B={eager_b}: {med['eager']:.1f} host ms, "
+          f"{eager_b * 1e3 / med['eager']:.2f} stream-frames/s (one round "
+          f"of {STREAM_TIMED}, launches {eager_launches})", flush=True)
     by_b = {}
     for Bt in STREAM_BS:
         sb, j = runs[Bt]
         (_, _), syncs = _host_syncs(torch, lambda: step(sb, Bt, j))
-        ops, dms, kms, prof = _device_profile(torch, lambda: step(sb, Bt, j))
-        prof_counts = _kernel_counts(prof)
+        _, ev = _raw_profile(torch, lambda: step(sb, Bt, j))
+        prof_counts = {k: ev[k] for k in ("tile_gather", "sparse_align")}
+        _, slot_mb, capture_s, pool_mb = slot_of[Bt]
         by_b[Bt] = {"host_ms_per_step": med[Bt],
                     "host_ms_rounds": rounds[Bt],
                     "stream_frames_per_s": Bt * 1e3 / med[Bt],
-                    "launches": launched[Bt],
                     "steps": STREAM_TIMED * STREAM_ROUNDS,
                     "profiled_launches_per_step": prof_counts,
-                    "device_ops_per_step": ops, "device_ms_per_step": dms,
-                    "kernel_device_ms": kms, "host_syncs_per_step":
-                        len(syncs)}
-        print(f"# streams B={Bt}: {med[Bt]:.1f} host ms per batched step "
-              f"(median of rounds {[round(x, 1) for x in rounds[Bt]]}), "
+                    "device_ops_per_step": ev["device_ops"],
+                    "device_ms_per_step": ev["device_ms"],
+                    "host_aten_ops_per_step": ev["host_aten_ops"],
+                    "host_syncs_per_step": len(syncs),
+                    "slot_mb": slot_mb, "capture_s": capture_s,
+                    "pool_mb": pool_mb}
+        print(f"# streams B={Bt}, graphed: {med[Bt]:.2f} host ms per batched "
+              f"step (median of rounds {[round(x, 2) for x in rounds[Bt]]}), "
               f"{by_b[Bt]['stream_frames_per_s']:.2f} stream-frames/s; "
-              f"{ops} device ops, {dms:.3f} ms device time per step; "
-              f"launches per step by the profiler {prof_counts}; "
-              f"{len(syncs)} host syncs"
+              f"{ev['device_ops']} device ops, {ev['device_ms']:.3f} ms "
+              f"device time, {ev['host_aten_ops']} host aten ops per step; "
+              f"kernel events per step {prof_counts}; {len(syncs)} host "
+              f"syncs; slot {slot_mb:.1f} MB, capture {capture_s:.2f} s, "
+              f"pool {pool_mb:.1f} MB"
               + "".join(f"\n#   {x}" for x in syncs), flush=True)
         assert prof_counts == {"tile_gather": K1_PER_FRAME,
                                "sparse_align": 1}, (Bt, prof_counts)
         assert not syncs, f"streams B={Bt}: the batched step waits on the card"
+        assert ev["host_aten_ops"] < GRAPH_MAX_CALL_OPS, (Bt, ev)
 
     seconds = time.perf_counter() - t_phase
     return {"B": B, "frames": STREAM_FRAMES, "max_dt_m": dt,
-            "keyframes": kf_frames, "launches": launches, "by_b": by_b,
+            "keyframes": kf_frames, "launches": launches,
+            "replay_events": replay_events, "by_b": by_b,
+            "slot": {"slot_mb": slot_b[1], "capture_s": slot_b[2],
+                     "pool_mb": slot_b[3]},
             "vmap_fallbacks": fallbacks,
             "keyframe_batch": {"from_frames": kb, "keyframes": kb_frames,
-                               "max_dt_m": kb_dt},
+                               "max_dt_m": kb_dt, "graphed_vs_eager_m":
+                               kb_gap, "eager_max_dt_m":
+                               kb_res["eager"]["max_dt_m"]},
             "single_stream_host_ms": single_ms,
             "single_stream_host_ms_rounds": rounds["one"],
+            "eager": {"B": eager_b, "host_ms_per_step": med["eager"],
+                      "stream_frames_per_s": eager_b * 1e3 / med["eager"],
+                      "launches": eager_launches, "steps": STREAM_TIMED},
             "k1_batched": {"B": B, "shape": f"17x17x{n}",
                            "device_us": k1_us, "max_abs_err": 0.0},
             "k2_batched": {"B": B, "n_features": int(feats[0].shape[1]),
@@ -1471,6 +1584,18 @@ def _copy_state(dst, src):
     import torch.utils._pytree as pytree
     pytree.tree_map(lambda d, s_: d.copy_(s_), dst, src)
     return dst
+
+
+def _cat_outs(*outs):
+    """Stacked StepOuts of consecutive scans, one after another along T."""
+    import torch
+    from rpg_svo_tpu_torch.core.fused import StepOut
+    return StepOut(*[torch.cat(x) for x in zip(*outs)])
+
+
+def _frames_where(flags) -> list:
+    """The frames (1-based along T) where a stacked flag is set."""
+    return [int(i) + 1 for i in np.flatnonzero(flags.cpu().numpy())]
 
 
 def _state_ptrs(state) -> list:
@@ -1505,7 +1630,8 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
     DONATED_PAST frames past it, against phase 5's run, launches counted
     by the profiler's kernel events; then ``vo_scan_donated`` over the same
     window from another clone; then the keyframe step and the next, each
-    by eager ``vo_step`` and by a replay of ``vo_step_donated`` (host ms,
+    by the eager step body (``_eager_step``) and by a replay of
+    ``vo_step_donated`` (host ms,
     peak memory, and device ops and device ms of DONATED_PROFILES profiles
     each way, in turns; a device-ms difference counts as resolved only
     where the two ways' profiles do not overlap)."""
@@ -1538,9 +1664,10 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
         kfs_ref = [j for j in frames if bool(outs[j - 1].is_keyframe)]
         _, s_outs = fused.vo_scan_donated(
             _clone_state(snap), imgs[s:frames[-1]], cam, cfg, ncx, ncy, shape)
-        scan_dt = float(max(torch.abs(a.t_wc - b.t_wc).max()
-                            for a, b in zip(s_outs, d_outs)))
-        scan_kfs = [j for j, o in zip(frames, s_outs) if bool(o.is_keyframe)]
+        scan_dt = float(torch.abs(
+            s_outs.t_wc - torch.stack([o.t_wc for o in d_outs])).max())
+        scan_kfs = [j for j, f in zip(frames, s_outs.is_keyframe.tolist())
+                    if f]
         launches = {key: ev[key] for key in ("tile_gather", "sparse_align")}
         want = {"tile_gather": K1_PER_FRAME * len(frames),
                 "sparse_align": len(frames)}
@@ -1563,24 +1690,24 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
         # donated calls step one state buffer, so each replays its graph
         st = snap
         for j in range(s + 1, k):
-            st, _ = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
+            st, _ = _eager_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
         buf = _clone_state(st)
         fused.vo_step_donated(buf, imgs[k - 1], cam, cfg, ncx, ncy, shape)
         steps = {}
         for label, j in (("keyframe", k), ("other", k + 1)):
             def plain(st=st, j=j):
-                return functools.partial(fused.vo_step, st, imgs[j - 1], cam,
+                return functools.partial(_eager_step, st, imgs[j - 1], cam,
                                          cfg, ncx, ncy, shape)
 
             def donated(st=st, j=j):
                 return functools.partial(fused.vo_step_donated,
                                          _copy_state(buf, st), imgs[j - 1],
                                          cam, cfg, ncx, ncy, shape)
-            ways = {"vo_step": plain, "vo_step_donated": donated}
+            ways = {"eager": plain, "vo_step_donated": donated}
             # in turns: plain, donated, donated, plain
             runs = [(way, _step_figures(torch, ways[way])) for way in
-                    ("vo_step", "vo_step_donated", "vo_step_donated",
-                     "vo_step")]
+                    ("eager", "vo_step_donated", "vo_step_donated",
+                     "eager")]
             profs = {way: [] for way in ways}
             for r in range(DONATED_PROFILES):
                 for way in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
@@ -1598,12 +1725,13 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
                     "device_ops": [p[0] for p in profs[way]],
                     "device_ms": statistics.median(ms),
                     "device_ms_profiles": ms}
-            f, d = fig["vo_step"], fig["vo_step_donated"]
+            f, d = fig["eager"], fig["vo_step_donated"]
             fm, dm = f["device_ms_profiles"], d["device_ms_profiles"]
             resolved = max(dm) < min(fm) or max(fm) < min(dm)
             steps[label] = dict(fig, frame=j, device_ms_resolved=resolved)
-            print(f"# donated {preset} {label} step (frame {j}), vo_step / "
-                  f"vo_step_donated (a replay): host {f['host_ms']:.2f} / "
+            print(f"# donated {preset} {label} step (frame {j}), eager "
+                  f"vo_step body / vo_step_donated (a replay): host "
+                  f"{f['host_ms']:.2f} / "
                   f"{d['host_ms']:.2f} ms (median of {len(f['host_ms_calls'])}"
                   f" calls each), device ops {f['device_ops']} / "
                   f"{d['device_ops']}, device {f['device_ms']:.3f} "
@@ -1615,7 +1743,7 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
                   f"), peak memory above the input "
                   f"{f['peak_mb_above_input']:.1f} / "
                   f"{d['peak_mb_above_input']:.1f} MB", flush=True)
-            st = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)[0]
+            st = _eager_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)[0]
         del buf
         res[preset] = {"frames": [s + 1, frames[-1]], "max_dt_m": dt,
                        "keyframes": kfs, "launches": launches,
@@ -1714,13 +1842,15 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
     clone of the seeded state, ``vo_scan_donated`` over frames 1-n
     (PRESET_FRAMES): frame 1 runs the step and captures it, then frames
     2..n-GRAPH_PROFILED under sync debug mode and the last GRAPH_PROFILED
-    under the profiler are replays.  Against phase 5's eager ``vo_step``
+    under the profiler are replays.  Against phase 5's eager step body
     (GRAPH_TOL_M, the same keyframes) and the pins' limits; host syncs,
     K1 and K2 kernel events, host aten ops and device ms per replayed
     frame; capture seconds and the graph's pool.  Then host ms per frame
-    of eager ``vo_step`` and of replays over frames 1-GRAPH_TIMED from the
-    seeded state, in GRAPH_ROUNDS interleaved rounds, and each way's
-    device busy share (device ms per frame over host ms per frame)."""
+    over frames 1-GRAPH_TIMED from the seeded state, in GRAPH_ROUNDS
+    interleaved rounds, of the eager step body, of the donated step's
+    replays and of graphed ``vo_step`` (its slot's copy in, a replay, a
+    copy out), and each way's device busy share (device ms per frame over
+    host ms per frame) and host aten ops per frame."""
     import torch
     from rpg_svo_tpu_torch.core import fused, graphed
     ncx, ncy = grid
@@ -1738,37 +1868,41 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
         _, key_capture_s, key_pool_mb = graphed.graphs()[-1]
         (st, outs2), syncs = _host_syncs(torch, lambda: scan(st, imgs[1:n - P]))
         (st, outs3), ev = _raw_profile(torch, lambda: scan(st, imgs[n - P:n]))
-        outs = outs + outs2 + outs3
-        pos = torch.stack([o.t_wc for o in outs]).cpu().numpy()
+        outs = _cat_outs(outs, outs2, outs3)
+        pos = outs.t_wc.cpu().numpy()
         ref = np.stack([o.t_wc.cpu().numpy() for o in phase5_outs[preset][:n]])
         dt = float(np.abs(pos - ref).max())
-        kfs = [i for i, o in enumerate(outs, 1) if bool(o.is_keyframe)]
+        kfs = _frames_where(outs.is_keyframe)
         kfs_ref = [i for i, o in enumerate(phase5_outs[preset][:n], 1)
                    if bool(o.is_keyframe)]
-        failed = [i for i, o in enumerate(outs, 1) if bool(o.failed)]
+        failed = _frames_where(outs.failed)
         terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
         med, mx = float(np.median(terr)) * 1e3, float(terr.max()) * 1e3
         per = {k_: ev[k_] / P for k_ in ("tile_gather", "sparse_align",
                                          "host_aten_ops", "device_ops",
                                          "device_ms")}
-        # frames 1-GRAPH_TIMED from the seeded state, eager or replayed
-        # (the scan's state set to the seeded one: the scan's graph)
+        # frames 1-GRAPH_TIMED from the seeded state: the eager body, the
+        # donated step's replays (the scan's state set to the seeded one:
+        # the scan's graph) and graphed vo_step (a copy into its slot, a
+        # replay, a copy out; its slot made and captured before the rounds)
+        steps = {"eager": _eager_step, "graphed": fused.vo_step_donated,
+                 "vo_step": fused.vo_step}
+
         def block(way):
             src = seeded[preset]
             if way == "graphed":
                 src = _copy_state(st, src)
-            step = fused.vo_step if way == "vo_step" \
-                else fused.vo_step_donated
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(GRAPH_TIMED):
-                src, _ = step(src, imgs[i], cam, cfg, ncx, ncy, shape)
+                src, _ = steps[way](src, imgs[i], cam, cfg, ncx, ncy, shape)
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) / GRAPH_TIMED * 1e3
-        rounds = {"vo_step": [], "graphed": []}
+        fused.vo_step(seeded[preset], imgs[0], cam, cfg, ncx, ncy, shape)
+        ways = tuple(steps)
+        rounds = {w: [] for w in ways}
         for r in range(GRAPH_ROUNDS):
-            for way in (("vo_step", "graphed") if r % 2 == 0
-                        else ("graphed", "vo_step")):
+            for way in ways[r % len(ways):] + ways[:r % len(ways)]:
                 rounds[way].append(block(way))
         host = {w: statistics.median(v) for w, v in rounds.items()}
         # device ms and host aten ops per frame of the same frames, each
@@ -1799,20 +1933,19 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
               f"frames 2-{n - P}; per replayed frame (frames {n - P + 1}-{n},"
               f" profiler): K1 {per['tile_gather']}, K2 "
               f"{per['sparse_align']}, host aten ops {per['host_aten_ops']} "
-              f"(eager vo_step, frames 1-{GRAPH_TIMED}: "
-              f"{blocks['vo_step']['host_aten_ops']:.0f}), device ops "
+              f"(eager body, frames 1-{GRAPH_TIMED}: "
+              f"{blocks['eager']['host_aten_ops']:.0f}), device ops "
               f"{per['device_ops']}, device {per['device_ms']:.3f} ms" + "".join(
                   f"\n#   {x}" for x in syncs), flush=True)
         print(f"# graphed {preset}: host ms per frame over frames "
-              f"1-{GRAPH_TIMED}, median of {GRAPH_ROUNDS} interleaved rounds:"
-              f" vo_step {host['vo_step']:.2f} (" + ", ".join(
-                  f"{x:.2f}" for x in rounds["vo_step"]) + f"), graphed "
-              f"{host['graphed']:.2f} (" + ", ".join(
-                  f"{x:.2f}" for x in rounds["graphed"]) + f"); device ms per "
-              f"frame (profiled) vo_step {blocks['vo_step']['device_ms']:.3f}"
-              f", graphed {blocks['graphed']['device_ms']:.3f}; device busy "
-              f"share vo_step {busy['vo_step']:.3f}, graphed "
-              f"{busy['graphed']:.3f}", flush=True)
+              f"1-{GRAPH_TIMED}, median of {GRAPH_ROUNDS} interleaved rounds "
+              f"(rounds); device ms per frame (profiled); device busy share; "
+              f"host aten ops per frame: " + "; ".join(
+                  f"{w} {host[w]:.2f} (" + ", ".join(
+                      f"{x:.2f}" for x in rounds[w]) + f"), "
+                  f"{blocks[w]['device_ms']:.3f} ms, {busy[w]:.3f}, "
+                  f"{blocks[w]['host_aten_ops']:.1f}" for w in ways),
+              flush=True)
         assert np.isfinite(pos).all() and not failed, (preset, failed)
         assert dt <= GRAPH_TOL_M[preset], (preset, dt)
         assert kfs == kfs_ref and kfs, (preset, kfs, kfs_ref)
@@ -1827,6 +1960,130 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
     return res
 
 
+def _kept_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
+                gt) -> dict:
+    """Phase 26: the entries that keep their input state as CUDA graphs.
+    Every graph and slot is dropped first, so each preset's first call
+    makes its slot and captures.  Per preset: ``vo_scan`` over frames 1-n
+    (PRESET_FRAMES) from the seeded state (its copy into the slot, frame 1
+    a capture, the rest replays, one copy out) against phase 5's eager
+    body (GRAPH_TOL_M, the same keyframes) and the pins' limits, host
+    syncs over the scan, the input equal to a clone of it taken before;
+    ``vo_scan`` again from a clone over frames 1-KEPT_AGAIN: no capture,
+    the same outputs; the host aten ops and kernel events of a replayed
+    frame inside ``vo_scan`` (scans of 2P and of P frames, differenced);
+    then one ``vo_step`` call (host syncs, kernel events, host aten ops)
+    and its copy in and copy out alone (host aten ops; device us from
+    CUDA-graph replays of each)."""
+    import torch
+    import torch.utils._pytree as pytree
+    from rpg_svo_tpu_torch.core import fused, graphed
+    ncx, ncy = grid
+    t_phase = time.perf_counter()
+    graphed.clear()
+    res = {}
+    for preset, cfg in cfgs.items():
+        n, P = PRESET_FRAMES[preset], GRAPH_PROFILED
+        scan = functools.partial(fused.vo_scan, cam=cam, cfg=cfg, ncx=ncx,
+                                 ncy=ncy, img_shape=shape)
+        src = seeded[preset]
+        before = _clone_state(src)
+        _reset_counts()
+        t0 = time.perf_counter()
+        (st, outs), syncs = _host_syncs(torch, lambda: scan(src, imgs[:n]))
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        launches = _read_counts()
+        _, slot_mb, capture_s, pool_mb = graphed.slots()[-1]
+        kept = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(before), pytree.tree_leaves(src)))
+        del before
+        pos = outs.t_wc.cpu().numpy()
+        ref = np.stack([o.t_wc.cpu().numpy() for o in phase5_outs[preset][:n]])
+        dt = float(np.abs(pos - ref).max())
+        kfs = _frames_where(outs.is_keyframe)
+        kfs_ref = [i for i, o in enumerate(phase5_outs[preset][:n], 1)
+                   if bool(o.is_keyframe)]
+        failed = _frames_where(outs.failed)
+        terr = np.linalg.norm(pos - gt[:n], axis=-1)[TIMED_FROM - 1:]
+        med, mx = float(np.median(terr)) * 1e3, float(terr.max()) * 1e3
+        counts = (len(graphed.graphs()), len(graphed.slots()))
+        _, again = scan(_clone_state(src), imgs[:KEPT_AGAIN])
+        no_capture = counts == (len(graphed.graphs()), len(graphed.slots()))
+        again_dt = float(torch.abs(again.t_wc - outs.t_wc[:KEPT_AGAIN]).max())
+        _, e1 = _raw_profile(torch, lambda: scan(st, imgs[n:n + P]))
+        _, e2 = _raw_profile(torch, lambda: scan(st, imgs[n:n + 2 * P]))
+        per = {k_: (e2[k_] - e1[k_]) / P for k_ in e1}
+        step = functools.partial(fused.vo_step, st, imgs[n], cam, cfg, ncx,
+                                 ncy, shape)
+        (_, _), step_syncs = _host_syncs(torch, step)
+        _, call = _raw_profile(torch, step)
+        # the copies alone: host aten ops from the profiler, device us
+        # from CUDA-graph replays of them (the profiler may return no event
+        # for so short a run)
+        static = fused._static_args(cam, cfg, ncx, ncy, shape)
+        copies = {"copy_in": lambda: graphed.slot(static, st, imgs[n]),
+                  "copy_out": functools.partial(
+                      graphed.fresh_copy, graphed.slot(static, st, imgs[n]))}
+        copy = {}
+        for k_, fn in copies.items():
+            copy[k_] = {"host_aten_ops": _raw_profile(torch, fn)[1][
+                "host_aten_ops"], "device_us": _graph_us(torch, fn, reps=3)}
+        copy_in, copy_out = copy["copy_in"], copy["copy_out"]
+        res[preset] = {
+            "frames": n, "max_dt_m": dt, "keyframes": kfs,
+            "median_terr_mm": med, "max_terr_mm": mx, "scan_s": scan_s,
+            "capture_s": capture_s, "slot_mb": slot_mb, "pool_mb": pool_mb,
+            "host_syncs": len(syncs), "syncs_at": syncs,
+            "wrapper_launches": launches, "input_kept": kept,
+            "second_call_captures": not no_capture,
+            "second_call_max_dt_m": again_dt,
+            "per_replayed_frame": per, "vo_step_call": call,
+            "vo_step_call_syncs": len(step_syncs), "copy_in": copy_in,
+            "copy_out": copy_out}
+        print(f"# kept {preset}: graphed vo_scan over frames 1-{n} "
+              f"({scan_s:.2f} s; slot {slot_mb:.1f} MB, capture "
+              f"{capture_s:.2f} s, pool {pool_mb:.1f} MB): max |dt_wc| "
+              f"against phase 5's eager body {dt:.3e} m (tol "
+              f"{GRAPH_TOL_M[preset]}); keyframes {kfs} (phase 5: "
+              f"{kfs_ref}); terr over frames {TIMED_FROM}-{n} median "
+              f"{med:.3f} mm, max {mx:.3f} mm; {len(syncs)} host syncs; "
+              f"wrapper launches {launches} (the capture call); input "
+              f"unchanged: {kept}; a second call from a clone over frames "
+              f"1-{KEPT_AGAIN}: new capture {not no_capture}, max |dt_wc| "
+              f"{again_dt:.3e} m; per replayed frame inside vo_scan: K1 "
+              f"{per['tile_gather']}, K2 {per['sparse_align']}, host aten "
+              f"ops {per['host_aten_ops']}, device {per['device_ms']:.3f} ms"
+              + "".join(f"\n#   {x}" for x in syncs), flush=True)
+        print(f"# kept {preset}: one vo_step call: {len(step_syncs)} host "
+              f"syncs, K1 {call['tile_gather']}, K2 {call['sparse_align']}, "
+              f"host aten ops {call['host_aten_ops']} (copy in "
+              f"{copy_in['host_aten_ops']}, copy out "
+              f"{copy_out['host_aten_ops']}), device {call['device_ms']:.3f} "
+              f"ms (copy in {copy_in['device_us']:.1f} us, copy out "
+              f"{copy_out['device_us']:.1f} us, CUDA-graph replays)",
+              flush=True)
+        assert np.isfinite(pos).all() and not failed, (preset, failed)
+        assert dt <= GRAPH_TOL_M[preset], (preset, dt)
+        assert kfs == kfs_ref and kfs, (preset, kfs, kfs_ref)
+        lim = LIMITS_MM[preset]
+        assert med <= lim[0] and mx <= lim[1], (preset, med, mx, lim)
+        assert not syncs and not step_syncs, (preset, syncs, step_syncs)
+        assert launches == {"tile_gather": K1_PER_FRAME,
+                            "sparse_align": 1}, (preset, launches)
+        assert kept, f"{preset}: vo_scan wrote its input state"
+        assert no_capture and again_dt == 0.0, (preset, again_dt)
+        assert (per["tile_gather"], per["sparse_align"]) \
+            == (K1_PER_FRAME, 1), (preset, per)
+        assert (call["tile_gather"], call["sparse_align"]) \
+            == (K1_PER_FRAME, 1), (preset, call)
+        assert per["host_aten_ops"] < GRAPH_MAX_HOST_OPS, (preset, per)
+        assert call["host_aten_ops"] < GRAPH_MAX_CALL_OPS, (preset, call)
+        del st
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _mesh_world() -> int:
     """Phase 22, run in its own process: a process group of one rank on
     the card (NCCL) and each mesh program against its single-device
@@ -1834,7 +2091,7 @@ def _mesh_world() -> int:
     import torch
     from rpg_svo_tpu_torch.ba.schur import BAProblem, solve_ba
     from rpg_svo_tpu_torch.config import bench_cfg
-    from rpg_svo_tpu_torch.core import fused
+    from rpg_svo_tpu_torch.core import fused, graphed
     from rpg_svo_tpu_torch.core.depth_filter import seed_variance_update
     from rpg_svo_tpu_torch.geometry.se3 import SE3
     from rpg_svo_tpu_torch.ops.detector import grid_dims
@@ -1958,18 +2215,38 @@ def _mesh_world() -> int:
     _, o1 = fused.vo_step(s0, img1, ds.cam, cfg, ncx, ncy, SHAPE)
     res["multistream"] = {"gap": gap(om.t_wc[0], o1.t_wc),
                           "collectives": len(coll)}
-    sm, s1 = s0, s0
-    gaps, colls, kfs = [], [], []
+    # vo_step_mesh is graphed: its first call runs the step (the log gets
+    # its collectives) and captures it with them, later calls replay them
+    # (the log gets none; the profiler sees what the card ran)
+    sm, s1, se = s0, s0, s0
+    gaps, gaps_eager, colls, kfs = [], [], [], []
     for i in range(1, MESH_FRAMES + 1):
         img = ds.frame(i)[0]
         (sm, om), coll = counted(lambda: vo_step_mesh(
             mesh, sm, img, ds.cam, cfg, ncx, ncy, SHAPE))
         s1, o1 = fused.vo_step(s1, img, ds.cam, cfg, ncx, ncy, SHAPE)
+        se, oe = _eager_step(se, img, ds.cam, cfg, ncx, ncy, SHAPE)
         gaps.append(max(gap(om.t_wc, o1.t_wc), gap(om.R_fw, o1.R_fw)))
+        gaps_eager.append(max(gap(om.t_wc, oe.t_wc), gap(om.R_fw, oe.R_fw)))
         colls.append(len(coll))
-        kfs.append([bool(om.is_keyframe), bool(o1.is_keyframe)])
+        kfs.append([bool(om.is_keyframe), bool(o1.is_keyframe),
+                    bool(oe.is_keyframe)])
+    img = ds.frame(MESH_FRAMES + 1)[0]
+    (_, _), coll = counted(lambda: _raw_profile(torch, lambda: vo_step_mesh(
+        mesh, sm, img, ds.cam, cfg, ncx, ncy, SHAPE)))
+    _, mesh_ev = _raw_profile(torch, lambda: vo_step_mesh(
+        mesh, sm, img, ds.cam, cfg, ncx, ncy, SHAPE))
+    _, single_ev = _raw_profile(torch, lambda: fused.vo_step(
+        s1, img, ds.cam, cfg, ncx, ncy, SHAPE))
+    meshes = [k[4] is not None for k, *_ in graphed.slots()]
     res["vo_step_mesh"] = {"frames": MESH_FRAMES, "gap": max(gaps),
-                           "collectives_per_step": colls, "keyframes": kfs}
+                           "gap_eager": max(gaps_eager),
+                           "collectives_per_step": colls,
+                           "collectives_profiled_replay": len(coll),
+                           "keyframes": kfs, "replay": mesh_ev,
+                           "single_device_replay": single_ev,
+                           "slots_with_mesh": sum(meshes),
+                           "slots_without": len(meshes) - sum(meshes)}
     torch.cuda.synchronize()
     res["seconds"] = time.perf_counter() - t0
     dist.destroy_process_group()
@@ -1991,6 +2268,7 @@ def _mesh_phase(root: Path) -> dict:
         f"{out.stderr[-3000:]}"
     res = json.loads(line[-1][len("# mesh "):])
     res["phase_seconds"] = time.perf_counter() - t0
+    vm = res["vo_step_mesh"]
     print(f"# mesh programs on {res['backend']} (world size "
           f"{res['world_size']}, mesh {res['mesh']}, {res['device']}): pose "
           f"gap {res['pose']['gap']:.2e} ({res['pose']['collectives']} "
@@ -2001,10 +2279,21 @@ def _mesh_phase(root: Path) -> dict:
           f"{res['ba']['scale']:.2f} m; solve_ba "
           f"{res['ba']['gap_solve_ba_t']:.2e}), multistream_step "
           f"{res['multistream']['gap']:.2e} ("
-          f"{res['multistream']['collectives']} collectives), vo_step_mesh "
-          f"{res['vo_step_mesh']['gap']:.2e} over {MESH_FRAMES} frames "
-          f"(collectives per step "
-          f"{res['vo_step_mesh']['collectives_per_step']}); "
+          f"{res['multistream']['collectives']} collectives), graphed "
+          f"vo_step_mesh {vm['gap']:.2e} from graphed vo_step and "
+          f"{vm['gap_eager']:.2e} from the eager body over {MESH_FRAMES} "
+          f"frames (collectives logged per call {vm['collectives_per_step']}"
+          f": the first call runs the step, the rest replay the graph); a "
+          f"replay against one of vo_step: NCCL kernels "
+          f"{vm['replay']['nccl_kernels']} / "
+          f"{vm['single_device_replay']['nccl_kernels']}, device copies "
+          f"{vm['replay']['memcpy']} / "
+          f"{vm['single_device_replay']['memcpy']}, device ops "
+          f"{vm['replay']['device_ops']} / "
+          f"{vm['single_device_replay']['device_ops']}, K1 "
+          f"{vm['replay']['tile_gather']}, K2 {vm['replay']['sparse_align']}"
+          f", host aten ops {vm['replay']['host_aten_ops']}; slots with the "
+          f"mesh {vm['slots_with_mesh']}, without {vm['slots_without']}; "
           f"{res['phase_seconds']:.1f} s", flush=True)
     print("# not run: NCCL across GPUs (this machine has one card; the mesh "
           "programs ran across 4 gloo ranks on the CPU in "
@@ -2019,8 +2308,16 @@ def _mesh_phase(root: Path) -> dict:
     assert res["seeds"]["n_conv"] == res["seeds"]["n_conv_single"] > 0
     assert res["pose"]["terr_m"] < 1e-3 and res["ba"]["gap_solve_ba_t"] < 5e-4
     assert res["multistream"]["collectives"] == 0
-    assert min(res["vo_step_mesh"]["collectives_per_step"]) > 0
-    assert all(a == b for a, b in res["vo_step_mesh"]["keyframes"])
+    assert vm["gap_eager"] <= MESH_TOL, vm
+    assert vm["collectives_per_step"][0] > 0 \
+        and not any(vm["collectives_per_step"][1:]) \
+        and vm["collectives_profiled_replay"] == 0, vm
+    assert all(len(set(k)) == 1 for k in vm["keyframes"]), vm["keyframes"]
+    assert (vm["replay"]["tile_gather"], vm["replay"]["sparse_align"]) \
+        == (K1_PER_FRAME, 1), vm["replay"]
+    assert vm["replay"]["host_aten_ops"] < GRAPH_MAX_CALL_OPS, vm["replay"]
+    # the mesh is part of a slot's key: the mesh step has a slot of its own
+    assert vm["slots_with_mesh"] == 1 and vm["slots_without"] >= 1, vm
     return res
 
 
@@ -2249,7 +2546,7 @@ def main() -> int:
     _reset_counts()
     outs = []
     for img in imgs[:SLICE_A_FRAMES]:
-        state, out = fused.vo_step(state, img, cam, cfg_a, ncx, ncy, shape)
+        state, out = _eager_step(state, img, cam, cfg_a, ncx, ncy, shape)
         outs.append(out)
     launches_a = _read_counts()
     pos = np.stack([o.t_wc.cpu().numpy() for o in outs])
@@ -2259,7 +2556,7 @@ def main() -> int:
                           "sparse_align": SLICE_A_FRAMES}, launches_a
     assert np.median(terr_a) < 0.01, "slice A lost the ground truth"
     ops_a, ms_a, _, _ = _device_profile(
-        torch, lambda: fused.vo_step(state, imgs[SLICE_A_FRAMES], cam, cfg_a,
+        torch, lambda: _eager_step(state, imgs[SLICE_A_FRAMES], cam, cfg_a,
                                      ncx, ncy, shape))
     print(f"# slice A, {SLICE_A_FRAMES} frames: median terr "
           f"{np.median(terr_a) * 1e3:.3f} mm, launches {launches_a}, "
@@ -2278,7 +2575,7 @@ def main() -> int:
         _reset_counts()
         t0 = time.perf_counter()
         for i, img in enumerate(imgs[:n], start=1):
-            state, out = fused.vo_step(state, img, cam, cfg, ncx, ncy, shape)
+            state, out = _eager_step(state, img, cam, cfg, ncx, ncy, shape)
             outs.append(out)
             # every SNAP_EVERY frames, and the streams' starts of phase 21
             if i % SNAP_EVERY == 0 or (preset == "fast" and i in
@@ -2310,10 +2607,10 @@ def main() -> int:
         s = max(i for i in snaps if i < k)
         st = snaps[s]
         for j in range(s + 1, k):
-            st, _ = fused.vo_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
+            st, _ = _eager_step(st, imgs[j - 1], cam, cfg, ncx, ncy, shape)
         steps = {}
         for label, j in (("keyframe", k), ("other", k + 1)):
-            step = functools.partial(fused.vo_step, st, imgs[j - 1], cam, cfg,
+            step = functools.partial(_eager_step, st, imgs[j - 1], cam, cfg,
                                      ncx, ncy, shape)
             (st_next, out), syncs = _host_syncs(torch, step)
             assert bool(out.is_keyframe) == (label == "keyframe"), (label, j)
@@ -2451,13 +2748,26 @@ def main() -> int:
     assert i_boot is not None, "the bootstrap never reached the default stage"
     boot_launches = _read_counts()
     state = fused.state_from_handler(fh)
+    # graphed vo_step: the wrappers count the slot's capture call at most;
+    # the kernels of the last GRAPH_PROFILED frames are profiler events
     _reset_counts()
-    b_outs = []
-    for j in range(i_boot + 1, N_FRAMES):
-        state, out = fused.vo_step(state, imgs[j - 1], cam, cfg, ncx, ncy,
-                                   shape)
-        b_outs.append(out)
-    track_launches = _read_counts()
+
+    def track(frames):
+        nonlocal state
+        outs = []
+        for j in frames:
+            state, out = fused.vo_step(state, imgs[j - 1], cam, cfg, ncx,
+                                       ncy, shape)
+            outs.append(out)
+        return outs
+    b_outs = track(range(i_boot + 1, N_FRAMES - GRAPH_PROFILED))
+    track_wrapped = _read_counts()
+    last, ev = _raw_profile(torch, lambda: track(
+        range(N_FRAMES - GRAPH_PROFILED, N_FRAMES)))
+    b_outs += last
+    track_launches = {k_: ev[k_] for k_ in ("tile_gather", "sparse_align")}
+    assert track_launches == {"tile_gather": K1_PER_FRAME * GRAPH_PROFILED,
+                              "sparse_align": GRAPH_PROFILED}, track_launches
     est = torch.stack([o.t_wc for o in b_outs]).cpu().numpy()
     b_failed = [i_boot + 1 + q for q, o in enumerate(b_outs)
                 if bool(o.failed)]
@@ -2475,14 +2785,17 @@ def main() -> int:
                  {k_: v / n_calls for k_, v in boot_launches.items()},
                  "track_launches": track_launches,
                  "track_launches_per_frame":
-                 {k_: v / len(b_outs) for k_, v in track_launches.items()}}
+                 {k_: v / GRAPH_PROFILED for k_, v in track_launches.items()},
+                 "track_wrapper_launches": track_wrapped}
     print(f"# bootstrap protocol: default stage at frame {i_boot} "
           f"({inliers} inliers, {n_calls} add_image calls, {boot_s:.1f} s); "
           f"ATE median {bootstrap['ate_median_mm']:.4f} mm over frames "
           f"{i_boot + 1}-{i_boot + n_bench} (limit {BOOT_ATE_LIMIT_MM:.4f}), "
           f"{bootstrap['ate_median_mm_to_end']:.4f} mm to frame "
           f"{N_FRAMES - 1}; scale {ate_b['scale']:.4f}; failed {b_failed}; "
-          f"launches {boot_launches} then {track_launches}", flush=True)
+          f"launches {boot_launches}, then graphed vo_step: kernel events "
+          f"{track_launches} over the last {GRAPH_PROFILED} frames "
+          f"(wrappers before them: {track_wrapped})", flush=True)
     assert not b_failed, b_failed
     assert bootstrap["ate_median_mm"] <= BOOT_ATE_LIMIT_MM, bootstrap
 
@@ -2668,11 +2981,17 @@ def main() -> int:
     graph = _graph_phase(seeded, imgs, {"fast": fast_outs,
                                         "accurate": acc_outs},
                          cam, cfgs, (ncx, ncy), shape, gt)
-    print(f"# phases 23-25 took {donated['seconds']:.1f} s, "
-          f"{stages['seconds']:.1f} s and {graph['seconds']:.1f} s",
-          flush=True)
 
-    # --- 20. the lines (after phases 21-25) ----------------------------------
+    # --- 26. the entries that keep their input as CUDA graphs -----------
+    phase(26)
+    kept = _kept_phase(seeded, imgs, {"fast": fast_outs,
+                                      "accurate": acc_outs},
+                       cam, cfgs, (ncx, ncy), shape, gt)
+    print(f"# phases 23-26 took {donated['seconds']:.1f} s, "
+          f"{stages['seconds']:.1f} s, {graph['seconds']:.1f} s and "
+          f"{kept['seconds']:.1f} s", flush=True)
+
+    # --- 20. the lines (after phases 21-26) ----------------------------------
     phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
@@ -2681,7 +3000,7 @@ def main() -> int:
              "handler_accurate": (handler_acc["launches"],
                                   handler_acc["frames"]),
              "bootstrap_handler": (boot_launches, n_calls),
-             "bootstrap_vo_step": (track_launches, len(b_outs)),
+             "bootstrap_vo_step": (track_launches, GRAPH_PROFILED),
              "relocalization": (reloc_launches, 3),
              "handler_atan": (handler_atan["launches"],
                               handler_atan["frames"]),
@@ -2703,9 +3022,19 @@ def main() -> int:
              "fast_graphed_scan": (graph["fast"]["launches"],
                                    graph["fast"]["profiled_frames"]),
              "accurate_graphed_scan": (graph["accurate"]["launches"],
-                                       graph["accurate"]["profiled_frames"])}
-    # batched steps: launches per batched step, whatever the streams
-    paths.update({f"streams_vmapped_b{B}": (r["launches"], r["steps"])
+                                       graph["accurate"]["profiled_frames"]),
+             "mesh_vo_step": (mesh["vo_step_mesh"]["replay"], 1),
+             "streams_eager_b8": (streams_b["eager"]["launches"],
+                                  streams_b["eager"]["steps"])}
+    # the kept-state entries (phase 26), profiler events per replayed frame
+    # and per call
+    for p_ in ("fast", "accurate"):
+        paths[f"{p_}_graphed_vo_scan"] = (kept[p_]["per_replayed_frame"], 1)
+        paths[f"{p_}_graphed_vo_step"] = (kept[p_]["vo_step_call"], 1)
+    # graphed batched steps: kernel events per replayed batched step,
+    # whatever the streams
+    paths.update({f"streams_vmapped_b{B}": (r["profiled_launches_per_step"],
+                                            1)
                   for B, r in streams_b["by_b"].items()})
     # the reference runs K2 for pinhole cameras only (pallas_align.py:53):
     # the ATAN and Omni paths align with the plain loop; the bootstrap's
@@ -2774,7 +3103,7 @@ def main() -> int:
                "driver_blender": driver_blender, "driver_euroc": driver_euroc,
                "checkpoint": ckpt, "live": live, "surface": surface,
                "streams": streams_b, "mesh": mesh, "donated": donated,
-               "stages": stages, "graphed": graph,
+               "stages": stages, "graphed": graph, "kept": kept,
                "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     # the whole summary also as a file: the printed line outgrows the tail

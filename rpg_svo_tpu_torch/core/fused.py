@@ -26,10 +26,12 @@ reference features as matches, no scrub), "pose" (the aligned pose kept),
 donated step, its throughput path) consumes its input state and writes
 every leaf of it in place, so that no step copies a pool and the state's
 storage is a fixed point of the step; ``vo_scan`` and ``vo_scan_donated``
-loop over them.  On the card the donated step is one CUDA graph, captured
-once per static signature and state storage and replayed per frame
-(core/graphed.py), as the JAX package's jitted donated step is one
-dispatch.
+loop over them and stack the outputs along T, as ``lax.scan`` does.  On
+the card every entry is one CUDA graph replay per frame (core/graphed.py),
+as each of the JAX package's jitted entries is one dispatch: the donated
+step's graph is captured once per static signature and state storage,
+and ``vo_step`` and ``vo_scan`` step a graph-owned copy of their input
+state with that graph.
 
 The JAX step chooses branches with ``lax.cond``; here every branch runs
 and its result is kept or dropped with ``torch.where`` or a mask, so
@@ -407,9 +409,35 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
             img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
     """One tracking and mapping step (DEFAULT or RELOCALIZING stage) on the
     state's device; returns (new state, outputs).  Reads nothing back to
-    the host, and leaves its input state as it was (the new state shares
-    the tensors the step did not write)."""
-    return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape, inplace=False)
+    the host, and leaves its input state as it was.
+
+    On the card the step runs as a CUDA graph (core/graphed.run_kept):
+    the state is copied into a graph-owned slot of its shapes, the slot is
+    stepped by the donated step's graph (captured on the slot's first
+    call, replayed later), and the new state is a copy of the slot.  A
+    capture that fails raises.  On the CPU, and under ``torch.func.vmap``
+    (``parallel/streams.py``), the step runs eagerly; the new state then
+    shares the tensors the step did not write."""
+    if not graphed.on_card(*pytree.tree_leaves(state), img):
+        return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
+                        inplace=False)
+    return graphed.run_kept(
+        functools.partial(_donated_step, cam=cam, cfg=cfg, ncx=ncx, ncy=ncy,
+                          img_shape=img_shape),
+        _static_args(cam, cfg, ncx, ncy, img_shape), state, img)
+
+
+def write_back(state, new) -> None:
+    """Every leaf of ``new`` into the storage of the same leaf of
+    ``state`` (a leaf already there is left alone); a leaf of another
+    shape or dtype raises."""
+    def put(old, now):
+        if now.shape != old.shape or now.dtype != old.dtype:
+            raise ValueError(f"a donated leaf {tuple(old.shape)} {old.dtype}"
+                             f" came back {tuple(now.shape)} {now.dtype}")
+        if now.data_ptr() != old.data_ptr():
+            old.copy_(now)
+    pytree.tree_map(put, state, new)
 
 
 def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
@@ -422,13 +450,7 @@ def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     ``torch.where`` copies).  Returns the input state, now the new one."""
     new, out = _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
                         inplace=True)
-
-    def put(old, now):
-        if now.shape != old.shape or now.dtype != old.dtype:
-            raise ValueError(f"a donated leaf {tuple(old.shape)} {old.dtype}"
-                             f" came back {tuple(now.shape)} {now.dtype}")
-        return old if now.data_ptr() == old.data_ptr() else old.copy_(now)
-    pytree.tree_map(put, state, new)
+    write_back(state, new)
     return state, out
 
 
@@ -447,14 +469,14 @@ def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
     the CPU the step runs eagerly.
 
     The caller must not read the input state afterwards, nor any state
-    that shares its tensors (a ``vo_step`` output shares the tensors its
-    step did not write with that step's input): clone a state to keep it.
-    Raises under ``torch.func.vmap``: a stream batch steps with
-    ``vo_step`` (parallel/streams.py)."""
+    that shares its tensors (an eager ``vo_step`` output shares the
+    tensors its step did not write with that step's input): clone a state
+    to keep it.  Raises under ``torch.func.vmap``: a stream batch steps
+    with ``parallel/streams.vmapped_vo_step``."""
     if is_batched(img, *pytree.tree_leaves(state)):
         raise RuntimeError("vo_step_donated does not run under vmap: a "
-                           "stream batch steps with vo_step")
-    if not state.R.is_cuda:
+                           "stream batch steps with vmapped_vo_step")
+    if not graphed.on_card(state.R):
         return _donated_step(state, img, cam, cfg, ncx, ncy, img_shape)
     return graphed.run(
         functools.partial(_donated_step, cam=cam, cfg=cfg, ncx=ncx, ncy=ncy,
@@ -464,32 +486,51 @@ def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
 
 def _static_args(cam, cfg: Config, ncx: int, ncy: int,
                  img_shape: Tuple[int, int]) -> tuple:
-    """The donated step's static arguments, as its graph key holds them."""
+    """The step's static arguments, as its graph and slot keys hold
+    them."""
     return cam, cfg, int(ncx), int(ncy), tuple(img_shape)
 
 
+def stack_outs(outs) -> StepOut:
+    """Per-step outputs stacked along a new leading axis, field by field
+    (as ``lax.scan`` stacks them)."""
+    return StepOut(*[torch.stack(x) for x in zip(*outs)])
+
+
 def vo_scan(state: VOState, imgs, cam, cfg: Config, ncx: int, ncy: int,
-            img_shape: Tuple[int, int]):
-    """Track a sequence of images; returns (state, list of StepOut)."""
-    outs = []
-    for img in imgs:
-        state, out = vo_step(state, img, cam, cfg, ncx, ncy, img_shape)
-        outs.append(out)
-    return state, outs
+            img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
+    """Track a sequence of images (T, H, W); returns (state, StepOut with
+    every field stacked along T), and leaves the input state as it was.
+    On the card the state is copied into its slot once, every frame is a
+    replay of the slot's graph (the first a capture, on the slot's first
+    call), and the final state is copied out once (core/graphed.py)."""
+    if not graphed.on_card(*pytree.tree_leaves(state)):
+        outs = []
+        for img in imgs:
+            state, out = vo_step(state, img, cam, cfg, ncx, ncy, img_shape)
+            outs.append(out)
+        return state, stack_outs(outs)
+    step = functools.partial(_donated_step, cam=cam, cfg=cfg, ncx=ncx,
+                             ncy=ncy, img_shape=img_shape)
+    static = _static_args(cam, cfg, ncx, ncy, img_shape)
+    own = graphed.slot(static, state, imgs[0])
+    outs = [graphed.run(step, static, own, img)[1] for img in imgs]
+    return graphed.fresh_copy(own), stack_outs(outs)
 
 
 def vo_scan_donated(state: VOState, imgs, cam, cfg: Config, ncx: int,
-                    ncy: int, img_shape: Tuple[int, int]):
+                    ncy: int, img_shape: Tuple[int, int]
+                    ) -> Tuple[VOState, StepOut]:
     """``vo_scan`` with ``vo_step_donated``: consumes the input state.  On
     the card every frame after the first is a replay of one CUDA graph, so
-    the loop dispatches none of the step's ops from Python; each frame's
-    outputs are copies, not the graph's own buffers."""
+    the loop dispatches none of the step's ops from Python; the outputs
+    are copies, not the graph's own buffers."""
     outs = []
     for img in imgs:
         state, out = vo_step_donated(state, img, cam, cfg, ncx, ncy,
                                      img_shape)
         outs.append(out)
-    return state, outs
+    return state, stack_outs(outs)
 
 
 def seed_first_frame_with_depth(img: torch.Tensor, T_f_w: SE3,

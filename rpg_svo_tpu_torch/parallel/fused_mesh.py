@@ -11,6 +11,11 @@ reference's tracking/mapping thread split (svo/src/depth_filter.cpp:
 64-112) becomes mapping work partitioned over ranks inside the one step.
 
 Results equal the single-device step's up to the order of float sums.
+On a card both entries run through ``vo_step``/``vo_scan``'s CUDA graphs
+(core/graphed.py, the ambient mesh in the graph's key): the graph captures
+the NCCL collectives after the eager first step has set the communicator
+up, and replays them; ``gspmd.record_collectives`` then logs the first
+call only.  On gloo (the CPU) the step is eager.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ def vo_step_mesh(mesh, state: "fused.VOState", img, cam, cfg: Config,
 def vo_scan_mesh(mesh, state: "fused.VOState", imgs, cam, cfg: Config,
                  ncx: int, ncy: int, img_shape: Tuple[int, int],
                  axis: str = "sp"):
-    """``vo_scan`` (a whole image stack) with sharded internals."""
+    """``vo_scan`` (a whole image stack) with sharded internals; the
+    outputs stacked along T."""
     cfg_sp = _check_cfg(mesh, cfg, axis)
     with use_mesh(mesh):
         return fused.vo_scan(state, imgs, cam, cfg_sp, ncx, ncy, img_shape)

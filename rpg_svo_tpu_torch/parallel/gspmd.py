@@ -16,8 +16,9 @@ Both are no-ops when the axis is empty, so the single-device step issues
 no collective and runs as it did.  The mesh is ambient: ``use_mesh(mesh)``
 around the call, the counterpart of ``jax.set_mesh``
 (``parallel/fused_mesh.py``).  Every collective of the parallel layer goes
-through this module; inside ``record_collectives()`` each one is logged
-as (kind, axis, bytes), which the tests and ``chip_smoke.py`` read.
+through this module; inside ``record_collectives()`` each one issued is
+logged as (kind, axis, bytes), which the tests and ``chip_smoke.py`` read
+(a CUDA graph's capture issues none, and its replays log nothing).
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _MESHES.pop()
+
+
+def ambient_mesh():
+    """The ambient mesh, or None outside ``use_mesh``."""
+    return _MESHES[-1] if _MESHES else None
 
 
 def current_mesh():
@@ -86,6 +92,10 @@ def record_collectives():
 
 
 def _record(kind: str, axis: Axis, t: torch.Tensor) -> None:
+    # a CUDA graph's capture issues nothing: its replays are counted by
+    # the profiler's NCCL kernel events (core/graphed.py)
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
     for log in _LOGS:
         log.append((kind, axis, t.numel() * t.element_size()))
 

@@ -4,27 +4,33 @@ Port of ``rpg_svo_tpu/parallel/streams.py``: serving many camera streams
 at once, in two forms over a ``VOState`` with a leading stream axis.
 
 - ``vmapped_vo_step``: B streams in one step on one card,
-  ``torch.func.vmap`` over ``core/fused.vo_step``.  The step already runs
-  every branch and selects (it reads nothing back to the host), so the
-  batch keeps every stream's semantics; kernels K1 and K2 are custom ops
-  whose vmap rules launch once for all B streams (``ops/tiles.py``,
+  ``torch.func.vmap`` over the fused step.  The step already runs every
+  branch and selects (it reads nothing back to the host), so the batch
+  keeps every stream's semantics; kernels K1 and K2 are custom ops whose
+  vmap rules launch once for all B streams (``ops/tiles.py``,
   ``ops/align_kernel.py``), so a batched step issues about as many
-  launches as one stream's.
+  launches as one stream's.  On the card the batched step is one CUDA
+  graph replay per step, one graph-owned slot per B (core/graphed.py):
+  the functional vmapped step followed, outside the vmap, by the donated
+  step's write of every new stacked leaf into the slot's (an in-place
+  write of a batch fails under vmap).
 - ``multistream_step`` / ``multistream_scan``: one stream per rank along
   the mesh's ``dp`` axis, each rank stepping its own stream.  They issue
   no collective: streams are independent, so nothing crosses a rank (the
-  counterpart of the JAX package's DCN-silence claim).
+  counterpart of the JAX package's DCN-silence claim).  On a card each
+  stream steps through ``vo_step``/``vo_scan``'s graphs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch.config import Config
-from rpg_svo_tpu_torch.core import fused
+from rpg_svo_tpu_torch.core import fused, graphed
 
 
 def stack_states(states) -> "fused.VOState":
@@ -38,20 +44,42 @@ def index_state(batched, i: int):
     return pytree.tree_map(lambda x: x[i], batched)
 
 
+def _vmapped_step(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
+                  ncy: int, img_shape: Tuple[int, int]):
+    """The batched step, eager and functional: ``torch.func.vmap`` of the
+    out-of-place step body."""
+    def step(s, img):
+        return fused._vo_step(s, img, cam, cfg, ncx, ncy, img_shape,
+                              inplace=False)
+    return torch.func.vmap(step)(states, imgs)
+
+
+def _vmapped_donated(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
+                     ncy: int, img_shape: Tuple[int, int]):
+    """The body of the batched step's graph: ``_vmapped_step``, then every
+    new stacked leaf written into ``states``' storage (outside the vmap).
+    Returns ``states``, now the new ones."""
+    new, out = _vmapped_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
+    fused.write_back(states, new)
+    return states, out
+
+
 def vmapped_vo_step(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
                     ncy: int, img_shape: Tuple[int, int]):
     """One tracking step for B streams at once, on the states' device.
 
     states: VOState with leading axis B; imgs (B, H, W).  Returns (states',
     StepOut) with the same leading axis; the camera and config are
-    shared."""
-    def step(s, img):
-        return fused.vo_step(s, img, cam, cfg, ncx, ncy, img_shape)
-    return torch.func.vmap(step)(states, imgs)
-
-
-def _stack_outs(outs) -> "fused.StepOut":
-    return fused.StepOut(*[torch.stack(x) for x in zip(*outs)])
+    shared, and the input states are left as they were.  On the card a
+    replay of the graph of B's slot (core/graphed.run_kept; a capture on
+    the slot's first call, which raises if it fails); on the CPU eager."""
+    if not graphed.on_card(*pytree.tree_leaves(states), imgs):
+        return _vmapped_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
+    return graphed.run_kept(
+        functools.partial(_vmapped_donated, cam=cam, cfg=cfg, ncx=ncx,
+                          ncy=ncy, img_shape=img_shape),
+        ("vmapped",) + fused._static_args(cam, cfg, ncx, ncy, img_shape),
+        states, imgs)
 
 
 def multistream_step(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
@@ -69,7 +97,7 @@ def multistream_step(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
                              ncy, img_shape)
         new.append(s)
         outs.append(o)
-    return stack_states(new), _stack_outs(outs)
+    return stack_states(new), fused.stack_outs(outs)
 
 
 def multistream_scan(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
@@ -85,5 +113,5 @@ def multistream_scan(mesh, states, imgs: torch.Tensor, cam, cfg: Config,
         s, o = fused.vo_scan(index_state(states, j), imgs[j], cam, cfg, ncx,
                              ncy, img_shape)
         new.append(s)
-        outs.append(_stack_outs(o))
-    return stack_states(new), _stack_outs(outs)
+        outs.append(o)
+    return stack_states(new), fused.stack_outs(outs)

@@ -52,6 +52,7 @@ def main():
         int(sys.argv[3]), sys.argv[4], sys.argv[5]
     from rpg_svo_tpu_torch import config as tconfig
     from rpg_svo_tpu_torch.ba.schur import BAProblem
+    from rpg_svo_tpu_torch.core import fused
     from rpg_svo_tpu_torch.core.convert import state_from_numpy
     from rpg_svo_tpu_torch.geometry.se3 import SE3
     from rpg_svo_tpu_torch.parallel import gspmd, multihost, sharded
@@ -126,7 +127,7 @@ def main():
             (state, o), raw, log = counted(lambda: vo_scan_mesh(
                 m, state, img[None], cam, cfg, sc["ncx"], sc["ncy"],
                 tuple(sc["shape"])))
-            o = o[0]
+            o = fused.StepOut(*(x[0] for x in o))
             steps.append({"t_wc": o.t_wc.numpy(), "R_fw": o.R_fw.numpy(),
                           "is_keyframe": bool(o.is_keyframe),
                           "failed": bool(o.failed),

@@ -13,12 +13,15 @@ sums in another order than its twin (which gathers with the plain
 poses within 1e-5 m and 1e-5, the same tracked count and the same
 iterations at every level.  The measured gap is about 2e-7.
 
-The donated step as a CUDA graph (core/graphed.py) against eager
-``vo_step`` over frames 81-100 of the bench scene: the same kernels in
-the same order, so bit-equal in the fast preset and within 1e-5 m in the
+The donated step as a CUDA graph (core/graphed.py) against the eager
+step body over frames 81-100 of the bench scene: the same kernels in the
+same order, so bit-equal in the fast preset and within 1e-5 m in the
 accurate one (local BA's atomic sums); its capture under sync-debug
 "error", no new capture for a state stepped again, and K1 and K2 counted
-by the profiler's kernel events, which see a graph's replays.
+by the profiler's kernel events, which see a graph's replays.  The
+entries that keep their input on the same frames: graphed ``vo_step``
+against the eager body (input untouched, a clone finds the same slot),
+and graphed ``vmapped_vo_step`` at B = 4 against the eager batched step.
 """
 
 import numpy as np
@@ -90,6 +93,14 @@ def _assert_twin(Tk, nk, ik, rp):
     assert float(torch.abs(Tk.R - rp.T_cur_ref.R).max()) < K2_TOL
     assert int(nk) == int(rp.n_tracked)
     assert torch.equal(ik.cpu(), rp.iters.cpu()), (ik, rp.iters)
+
+
+def _eager(state, img, cam, cfg, ncx, ncy):
+    """The step's eager body, out of place (every op from Python): the
+    reference of the graphed entries, and a card path whose launches the
+    wrappers count."""
+    return fused._vo_step(state, img, cam, cfg, ncx, ncy, SHAPE,
+                          inplace=False)
 
 
 @pytest.mark.cuda
@@ -257,9 +268,10 @@ def test_sparse_align_kernel_refuses_features_beyond_shared_memory(scene):
 
 @pytest.mark.cuda
 def test_step_on_card_matches_the_cpu_path(scene):
-    """Two tracking steps on the card (K1, K2) and on the CPU (twins) from
-    one state: the same matches, poses within 1e-4 m; one alignment launch
-    and one K1 launch per step."""
+    """Two tracking steps on the card (K1, K2; the eager body, so the
+    wrappers count every launch) and on the CPU (twins) from one state:
+    the same matches, poses within 1e-4 m; one alignment launch and one K1
+    launch per step."""
     ds, state0 = scene
     ncx, ncy = grid_dims(SHAPE[1], SHAPE[0], CFG.grid_size)
     g, c = state0, state_from_numpy(state_to_numpy(state0), device="cpu")
@@ -267,7 +279,7 @@ def test_step_on_card_matches_the_cpu_path(scene):
                 align_kernel.sparse_align_kernel.launches)
     for i in (1, 2):
         img = ds.frame(i)[0]
-        g, og = fused.vo_step(g, img, ds.cam, CFG, ncx, ncy, SHAPE)
+        g, og = _eager(g, img, ds.cam, CFG, ncx, ncy)
         c, oc = fused.vo_step(c, img.cpu(), ds.cam, CFG, ncx, ncy, SHAPE)
         assert int(og.n_matches) == int(oc.n_matches)
         assert not bool(og.failed)
@@ -279,9 +291,9 @@ def test_step_on_card_matches_the_cpu_path(scene):
 
 @pytest.mark.cuda
 def test_whole_step_on_card_matches_the_cpu_path(scene):
-    """Two whole fast steps (ablate=()) on the card and on the CPU from one
-    state: equal matches and keyframe decisions, poses within 1e-4 m;
-    four K1 launches and one alignment launch per step."""
+    """Two whole fast steps (ablate=()) on the card (the eager body) and on
+    the CPU from one state: equal matches and keyframe decisions, poses
+    within 1e-4 m; four K1 launches and one alignment launch per step."""
     ds, _ = scene
     cfg = bench_cfg("fast")
     ncx, ncy = grid_dims(SHAPE[1], SHAPE[0], cfg.grid_size)
@@ -294,7 +306,7 @@ def test_whole_step_on_card_matches_the_cpu_path(scene):
                 align_kernel.sparse_align_kernel.launches)
     for i in (1, 2):
         img = ds.frame(i)[0]
-        g, og = fused.vo_step(g, img, ds.cam, cfg, ncx, ncy, SHAPE)
+        g, og = _eager(g, img, ds.cam, cfg, ncx, ncy)
         c, oc = fused.vo_step(c, img.cpu(), ds.cam, cfg, ncx, ncy, SHAPE)
         assert int(og.n_matches) == int(oc.n_matches)
         assert bool(og.is_keyframe) == bool(oc.is_keyframe)
@@ -411,8 +423,12 @@ GRAPH_FRAMES = 20      # the window holds the bench scene's keyframe 87
 GRAPH_ACC_TOL_M = 1e-5  # local BA's index_add_ atomics sum in any order
 
 
+STREAM_EVERY = 10      # the batch of streams starts from every 10th frame
+
+
 def _clone_state(state):
     return pytree.tree_map(torch.clone, state)
+
 
 
 def _kernel_events(fn):
@@ -432,10 +448,11 @@ def _kernel_events(fn):
 
 @pytest.fixture(scope="module")
 def graph_runs(scene):
-    """Per preset: the bench scene's eager vo_step from its seeding to
-    frame GRAPH_FROM (that state kept), its outputs over the next
-    GRAPH_FRAMES frames, and the graphed vo_scan_donated over the same
-    frames from a clone of the kept state."""
+    """Per preset: the bench scene's eager step body from its seeding to
+    frame GRAPH_FROM (that state kept, and every STREAM_EVERY-th), its
+    outputs over the next GRAPH_FRAMES frames, and the graphed
+    vo_scan_donated over the same frames from a clone of the kept
+    state."""
     from rpg_svo_tpu_torch.core import graphed
     ds, _ = scene
     dev = need_cuda()
@@ -451,19 +468,22 @@ def graph_runs(scene):
         st = fused.seed_first_frame_with_depth(img0, T0.inverse(), depth0,
                                                ds.cam, cfg, img_shape=SHAPE,
                                                device=dev)
+        snaps = {}
         for i in range(1, GRAPH_FROM + 1):
-            st, _ = fused.vo_step(st, imgs[i], ds.cam, cfg, ncx, ncy, SHAPE)
+            st, _ = _eager(st, imgs[i], ds.cam, cfg, ncx, ncy)
+            if i % STREAM_EVERY == 0:
+                snaps[i] = st
         start = _clone_state(st)
         eager = []
         for i in range(GRAPH_FROM + 1, GRAPH_FROM + GRAPH_FRAMES + 1):
-            st, o = fused.vo_step(st, imgs[i], ds.cam, cfg, ncx, ncy, SHAPE)
+            st, o = _eager(st, imgs[i], ds.cam, cfg, ncx, ncy)
             eager.append(o)
         gst, graphed_outs = fused.vo_scan_donated(
             _clone_state(start), imgs[GRAPH_FROM + 1:], ds.cam, cfg, ncx,
             ncy, SHAPE)
         out[preset] = dict(cfg=cfg, cam=ds.cam, grid=(ncx, ncy), start=start,
                            eager=eager, graphed=graphed_outs, state=gst,
-                           imgs=imgs)
+                           imgs=imgs, snaps=snaps)
     return out
 
 
@@ -471,16 +491,20 @@ def graph_runs(scene):
 @pytest.mark.parametrize("preset", ["fast", "accurate"])
 def test_graphed_donated_scan_equals_eager_vo_step(graph_runs, preset):
     """vo_scan_donated on the card (one capture, then replays) over frames
-    81-100 against eager vo_step: the same kernels in the same order, so
-    bit-equal poses in the fast preset and within 1e-5 m in the accurate
-    one (local BA's atomic sums); the same keyframes (87 among them)."""
+    81-100 against the eager step body: the same kernels in the same
+    order, so bit-equal poses in the fast preset and within 1e-5 m in the
+    accurate one (local BA's atomic sums); the same keyframes (87 among
+    them)."""
     r = graph_runs[preset]
     kf_e = [i for i, o in enumerate(r["eager"], GRAPH_FROM + 1)
             if bool(o.is_keyframe)]
-    kf_g = [i for i, o in enumerate(r["graphed"], GRAPH_FROM + 1)
-            if bool(o.is_keyframe)]
+    graphed_outs = r["graphed"]        # one StepOut stacked along T
+    assert graphed_outs.t_wc.shape == (GRAPH_FRAMES, 3)
+    kf_g = [GRAPH_FROM + 1 + i for i, k in
+            enumerate(graphed_outs.is_keyframe.tolist()) if k]
     assert kf_g == kf_e and 87 in kf_g, (kf_g, kf_e)
-    for e, g in zip(r["eager"], r["graphed"]):
+    for j, e in enumerate(r["eager"]):
+        g = fused.StepOut(*(x[j] for x in graphed_outs))
         assert not bool(g.failed)
         assert int(e.n_matches) == int(g.n_matches)
         if preset == "fast":
@@ -559,3 +583,101 @@ def test_graph_capture_runs_under_sync_debug_error(graph_runs):
         graphed.run(reads_back, ("reads_back",), x, r["imgs"][1])
     assert len(graphed.graphs()) == n
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# --- the entries that keep their input (core/graphed.run_kept) --------------
+def _graphed_counts():
+    from rpg_svo_tpu_torch.core import graphed
+    return len(graphed.graphs()), len(graphed.slots())
+
+
+def _t_wc_gap(a, b) -> float:
+    return float(torch.abs(a.t_wc - b.t_wc).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["fast", "accurate"])
+def test_graphed_vo_step_equals_the_eager_body(graph_runs, preset):
+    """vo_step on the card (a copy into its slot, a replay of the donated
+    step's graph, a copy out) over frames 81-100 against the eager step
+    body: fast bit-equal, accurate within 1e-5 m, the same keyframes (87
+    among them); its input state is left bit for bit as it was."""
+    r = graph_runs[preset]
+    ncx, ncy = r["grid"]
+    st = r["start"]
+    before = _clone_state(st)
+    outs = []
+    for i in range(GRAPH_FROM + 1, GRAPH_FROM + GRAPH_FRAMES + 1):
+        new, o = fused.vo_step(st, r["imgs"][i], r["cam"], r["cfg"], ncx,
+                               ncy, SHAPE)
+        if i == GRAPH_FROM + 1:
+            assert all(torch.equal(a, b) for a, b in zip(
+                pytree.tree_leaves(before), pytree.tree_leaves(st)))
+        st = new
+        outs.append(o)
+    kf = [i for i, o in enumerate(outs, GRAPH_FROM + 1)
+          if bool(o.is_keyframe)]
+    kf_e = [i for i, o in enumerate(r["eager"], GRAPH_FROM + 1)
+            if bool(o.is_keyframe)]
+    assert kf == kf_e and 87 in kf, (kf, kf_e)
+    for e, g in zip(r["eager"], outs):
+        assert not bool(g.failed) and int(e.n_matches) == int(g.n_matches)
+        if preset == "fast":
+            assert torch.equal(e.t_wc, g.t_wc) and torch.equal(e.R_fw, g.R_fw)
+        else:
+            assert _t_wc_gap(e, g) <= GRAPH_ACC_TOL_M
+
+
+@pytest.mark.cuda
+def test_second_vo_step_call_on_a_clone_makes_no_capture(graph_runs):
+    """A state of the same shapes in other storage (a clone) finds the
+    slot of the first: vo_step makes no graph and no slot, and gives the
+    same result."""
+    r = graph_runs["fast"]
+    ncx, ncy = r["grid"]
+    img = r["imgs"][GRAPH_FROM + 1]
+    _, first = fused.vo_step(r["start"], img, r["cam"], r["cfg"], ncx, ncy,
+                             SHAPE)
+    counts = _graphed_counts()
+    _, again = fused.vo_step(_clone_state(r["start"]), img, r["cam"],
+                             r["cfg"], ncx, ncy, SHAPE)
+    assert _graphed_counts() == counts
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_graphed_vmapped_step_matches_the_eager_batch(graph_runs):
+    """vmapped_vo_step at B = 4 on the card (one graph for B's slot) over
+    10 frames from the states after frames 50, 60, 70 and 80: each stream
+    within 1e-5 m of the eager batched step with the same keyframes (87 in
+    the last); a replayed batched step runs 4 K1 and 1 K2 kernels (the
+    profiler's events) and waits on the card nowhere (sync-debug
+    "error")."""
+    from rpg_svo_tpu_torch.parallel import streams
+    r = graph_runs["fast"]
+    ncx, ncy = r["grid"]
+    starts = [GRAPH_FROM - STREAM_EVERY * k for k in (3, 2, 1, 0)]
+    sg = se = streams.stack_states([r["snaps"][k] for k in starts])
+    kf_g, kf_e = [], []
+    for j in range(1, STREAM_EVERY + 1):
+        imgs = torch.stack([r["imgs"][k + j] for k in starts])
+        sg, og = streams.vmapped_vo_step(sg, imgs, r["cam"], r["cfg"], ncx,
+                                         ncy, SHAPE)
+        se, oe = streams._vmapped_step(se, imgs, r["cam"], r["cfg"], ncx,
+                                       ncy, SHAPE)
+        assert not bool(og.failed.any())
+        assert _t_wc_gap(og, oe) <= GRAPH_ACC_TOL_M, j
+        kf_g.append(og.is_keyframe.tolist())
+        kf_e.append(oe.is_keyframe.tolist())
+    assert kf_g == kf_e and any(row[-1] for row in kf_g), kf_g
+    imgs = torch.stack([r["imgs"][k + STREAM_EVERY + 1] for k in starts])
+
+    def step():
+        return streams.vmapped_vo_step(sg, imgs, r["cam"], r["cfg"], ncx,
+                                       ncy, SHAPE)
+    assert _kernel_events(step) == (4, 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

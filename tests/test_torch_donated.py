@@ -12,11 +12,13 @@ Against JAX: frames 6 and 7 from the port's state after frame 5,
 converted, at the whole-step tolerances of tests/test_torch_fused.py
 (1e-5 m after one step, 1e-4 after two).
 
-On the card the donated step is a CUDA graph keyed by the state's storage
-(core/graphed.py; tests/test_torch_cuda_kernels.py runs it there): here,
-the key's parts, that a CPU call builds no graph, and that the step
-dispatches no op that builds a tensor from host data (on the card a
-pageable copy to the device, which a capture refuses)."""
+On the card the donated step is a CUDA graph keyed by the state's storage,
+and vo_step, vo_scan and vmapped_vo_step step a graph-owned slot keyed by
+the state's shapes (core/graphed.py; tests/test_torch_cuda_kernels.py runs
+them there): here, the keys' parts, that a CPU call builds no graph and
+no slot, and that the step dispatches no op that builds a tensor from host
+data (on the card a pageable copy to the device, which a capture
+refuses)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,7 +132,7 @@ def test_donated_scan_equals_the_step_loop(scene, runs):
     st, outs = tfused.vo_scan_donated(
         _clone(r["states"][0]), _imgs(scene), scene["cam"], r["cfg"],
         scene["fh"].ncx, scene["fh"].ncy, SHAPE)
-    assert all(_equal(o, od) for o, od in zip(outs, r["d_outs"]))
+    assert _equal(outs, tfused.stack_outs(r["d_outs"]))
     assert _equal(st, r["d_states"][-1])
 
 
@@ -211,6 +213,54 @@ def test_graph_key_follows_storage_and_static_arguments(scene, runs):
     st2, _ = tfused.vo_step_donated(st, img, cam, r["cfg"], ncx, ncy, SHAPE)
     assert st2 is st and key(st2) == k
     assert graphed.graphs() == []
+
+
+def test_slot_key_follows_shapes_not_storage(scene, runs):
+    """The slot of the kept-state entries (graphed.slot_key) is the same
+    for a clone of a state (another storage) and differs for another
+    batch size, configuration, camera, image shape or image dtype."""
+    r = runs["fast"]
+    cam, ncx, ncy = scene["cam"], scene["fh"].ncx, scene["fh"].ncy
+    img = _imgs(scene)[0]
+    st = r["states"][1]
+
+    def key(state, img=img, cam=cam, cfg=r["cfg"], shape=SHAPE, tag=()):
+        return graphed.slot_key(
+            tag + tfused._static_args(cam, cfg, ncx, ncy, shape), state, img)
+    k = key(st)
+    assert key(_clone(st)) == k and key(st) == k
+    assert key(st, cfg=runs["accurate"]["cfg"]) != k
+    assert key(st, cfg=r["cfg"].replace(ablate=("df",))) != k
+    assert key(st, cam=cam._replace(fx=cam.fx + 1.0)) != k
+    assert key(st, img=img[:-8]) != k
+    assert key(st, img=img.to(torch.float64)) != k
+    # a stream batch: one slot per B, whatever the states' storage
+    two = stack_states(r["states"][1:3])
+    imgs2 = torch.stack(_imgs(scene)[:2])
+    kb = key(two, img=imgs2, tag=("vmapped",))
+    assert key(stack_states(r["states"][3:5]), img=imgs2,
+               tag=("vmapped",)) == kb
+    assert key(stack_states(r["states"][1:4]),
+               img=torch.stack(_imgs(scene)[:3]), tag=("vmapped",)) != kb
+
+
+def test_cpu_entries_build_no_slot_or_graph(scene, runs):
+    """On the CPU vo_step, vo_scan and vmapped_vo_step run eagerly: no
+    slot and no graph is made, and vo_scan's outputs are stacked along
+    T as vo_step's, frame by frame."""
+    from rpg_svo_tpu_torch.parallel.streams import vmapped_vo_step
+    r = runs["fast"]
+    args = (scene["cam"], r["cfg"], scene["fh"].ncx, scene["fh"].ncy, SHAPE)
+    imgs = _imgs(scene)
+    graphed.clear()
+    st, out = tfused.vo_step(r["states"][0], imgs[0], *args)
+    assert _equal(out, r["outs"][0]) and _equal(st, r["states"][1])
+    st, outs = tfused.vo_scan(r["states"][0], imgs[:2], *args)
+    assert _equal(outs, tfused.stack_outs(r["outs"][:2]))
+    assert _equal(st, r["states"][2])
+    vmapped_vo_step(stack_states(r["states"][:2]), torch.stack(imgs[:2]),
+                    *args)
+    assert graphed.slots() == [] and graphed.graphs() == []
 
 
 @pytest.mark.parametrize("preset", ["fast", "accurate"])

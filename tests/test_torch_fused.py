@@ -291,14 +291,14 @@ def test_port_tracks_from_its_own_seed(run):
     st, outs = tfused.vo_scan(st0, imgs, r["cam"], r["tcfg"], r["fh"].ncx,
                               r["fh"].ncy, SHAPE)
     s2 = st0
-    for img, o in zip(imgs, outs):
+    for i, img in enumerate(imgs):
         s2, o2 = tfused.vo_step(s2, img, r["cam"], r["tcfg"], r["fh"].ncx,
                                 r["fh"].ncy, SHAPE)
-        assert torch.equal(o2.t_wc, o.t_wc)
-    for i, o in enumerate(outs):
-        assert not bool(o.failed)
+        assert torch.equal(o2.t_wc, outs.t_wc[i])
+    for i in range(len(imgs)):
+        assert not bool(outs.failed[i])
         gt = np.asarray(r["ds"].poses[i + 1].t)
-        assert np.linalg.norm(o.t_wc.numpy() - gt) < 5e-3
+        assert np.linalg.norm(outs.t_wc[i].numpy() - gt) < 5e-3
 
 
 def test_step_rejects_an_unknown_ablation(run):
@@ -426,6 +426,31 @@ def test_keyframe_step_with_the_map_cap_matches_jax(full):
     _compare_full(t, j, 1e-4)
     before = jax_tree(full["states"][13])["m"]["kf"]["active"]
     assert (before & ~t["m"]["kf"]["active"]).sum() == 1
+
+
+def test_vo_scan_stacks_outputs_like_jax(full):
+    """vo_scan returns one StepOut with every field stacked along T, as
+    JAX's lax.scan does: over the whole-step scene's frames from the same
+    state, the same fields, shapes and dtypes, t_wc within 1e-4 m and the
+    same keyframes."""
+    imgs = np.stack(full["imgs"])
+    _, jo = jfused.vo_scan(full["states"][0], jnp.asarray(imgs),
+                           full["ds"].cam, full["jcfg"], full["fh"].ncx,
+                           full["fh"].ncy, SHAPE)
+    ts = state_from_numpy(jax_tree(full["states"][0]), device="cpu")
+    _, to = tfused.vo_scan(ts, to_torch(imgs), full["cam"], full["tcfg"],
+                           full["fh"].ncx, full["fh"].ncy, SHAPE)
+    assert isinstance(to, tfused.StepOut)
+    assert to._fields == jfused.StepOut._fields
+    for k in to._fields:
+        a, b = getattr(to, k).numpy(), np.asarray(getattr(jo, k))
+        assert a.shape == b.shape and a.shape[0] == FULL_FRAMES, k
+        assert a.dtype == b.dtype, k
+    np.testing.assert_array_equal(to.is_keyframe.numpy(),
+                                  np.asarray(jo.is_keyframe))
+    assert to.is_keyframe.any() and not to.failed.any()
+    np.testing.assert_allclose(to.t_wc.numpy(), np.asarray(jo.t_wc),
+                               atol=1e-4, rtol=0)
 
 
 def test_full_trajectory_matches_jax(full):

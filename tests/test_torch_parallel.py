@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from rpg_svo_tpu.ba.schur import BAProblem as JBAProblem
 from rpg_svo_tpu.geometry.se3 import SE3 as JSE3
@@ -206,6 +207,53 @@ def test_vmapped_step_takes_no_per_stream_fallback(full, preset):
         finally:
             flag(False)
     assert any(bool(o.is_keyframe.any()) for o in outs)
+
+
+def test_graphed_batch_body_equals_the_vmapped_step(full):
+    """The body a card captures for vmapped_vo_step (the functional
+    vmapped step, then every new stacked leaf written into the input's
+    storage) equals vmapped_vo_step bit for bit over 3 steps with a
+    keyframe in the batch, and keeps every stacked leaf's storage."""
+    cfg, states = _stream_states(full, "fast")
+    want_st, want = _vmapped_run(full, cfg, states)
+    st = pytree.tree_map(torch.clone, streams.stack_states(states))
+    ptrs = [x.data_ptr() for x in pytree.tree_leaves(st)]
+    for j in range(N_STEPS):
+        got_st, out = streams._vmapped_donated(
+            st, _imgs(full, j), full["cam"], cfg, full["fh"].ncx,
+            full["fh"].ncy, SHAPE)
+        assert got_st is st
+        assert all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(out), pytree.tree_leaves(want[j]))), j
+        assert [x.data_ptr() for x in pytree.tree_leaves(st)] == ptrs
+    assert any(bool(o.is_keyframe.any()) for o in want)
+    assert all(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(st), pytree.tree_leaves(want_st)))
+
+
+def test_vmapped_step_builds_no_tensor_from_host_data(full):
+    """The batched step (its graph's body) dispatches no ``lift_fresh``:
+    no tensor made from host data, which on the card is a pageable copy
+    that a CUDA graph's capture refuses."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    cfg, states = _stream_states(full, "fast")
+    st = pytree.tree_map(torch.clone, streams.stack_states(states))
+    imgs = _imgs(full, 0)
+    with Log() as log:
+        streams._vmapped_donated(st, imgs, full["cam"], cfg, full["fh"].ncx,
+                                 full["fh"].ncy, SHAPE)
+    assert len(log.ops) > 1000
+    assert not [op for op in log.ops if "lift_fresh" in op]
 
 
 def test_custom_ops_batch_like_the_plain_twins():
@@ -494,10 +542,11 @@ def test_vo_scan_mesh_matches_the_single_rank_scan(world, full, preset, sp):
                              cfg, sc["ncx"], sc["ncy"], SHAPE)
     for r in world["res"]:
         steps = r["scan"][(preset, sp)]
-        for j, (got, o) in enumerate(zip(steps, outs)):
+        assert len(steps) == len(outs.t_wc)
+        for j, got in enumerate(steps):
             assert not got["failed"]
-            assert got["is_keyframe"] == bool(o.is_keyframe), j
-            np.testing.assert_allclose(got["t_wc"], o.t_wc.numpy(),
+            assert got["is_keyframe"] == bool(outs.is_keyframe[j]), j
+            np.testing.assert_allclose(got["t_wc"], outs.t_wc[j].numpy(),
                                        atol=1e-4, rtol=0)
     steps = world["res"][0]["scan"][(preset, sp)]
     kf = [s_ for s_ in steps if s_["is_keyframe"]]
@@ -526,7 +575,7 @@ def test_multistream_scan_issues_no_collective(world, full):
         s = state_from_numpy(st["states"][b], device="cpu")
         _, outs = tfused.vo_scan(s, to_torch(st["imgs"][b]), full["cam"],
                                  cfg, full["fh"].ncx, full["fh"].ncy, SHAPE)
-        ref = torch.stack([o.t_wc for o in outs]).numpy()
+        ref = outs.t_wc.numpy()
         assert not got["failed"].any()
         np.testing.assert_allclose(got["t_wc"][0], ref, atol=1e-6, rtol=0)
         k = STARTS[b]
