@@ -29,26 +29,35 @@ one, or without the port beside it.  Phases, each fatal on failure:
    limits, no failed frame, exactly 4 K1 and 1 K2 launches per frame, 0
    host syncs in one keyframe step and one other step, device ops and
    device time of each (phases 4-5 run the step's eager body,
-   ``fused._vo_step``, out of place: the reference of every graphed
+   ``fused._vo_step``, out of place and inside ``graphed.disable()``, so
+   its jitted stages run eagerly too: the reference of every graphed
    phase, its launches counted by the wrappers);
 6. the fast step on the CPU (plain twins) over the 20 frames holding the
    first keyframe, from the card's state before them: equal keyframe
    decisions, max |dt_wc| <= 1e-3 m;
-7. the host pipeline ``FrameHandler`` (fast), seeded with ground-truth
-   depth as ``bench.py::run_preset`` seeds, over frames 1-440: median and
+7. the host pipeline ``FrameHandler`` (fast; every stage JAX jits a CUDA
+   graph replay, ``core/graphed.jit``), seeded with ground-truth depth as
+   ``bench.py::run_preset`` seeds, over frames 1-440: median and
    max translation error over frames 41-440 within the JAX handler's CPU
    figures +10% and +20%, no failed frame; ms/frame with the SVO_TRACE
-   stage totals, host syncs per frame (sync debug mode plus the stage
-   timers' synchronizes) and device ops and time of the first keyframe
-   step and the next, from a replay of the 20 frames holding it;
-8. ``FrameHandler`` (accurate) over frames 1-100: no failed frame, the
+   stage totals; K1 and K2 launches over the run as counted (the
+   wrappers' own launches and each graph replay's recorded ones,
+   ``graphed.replayed_launches``), and the profiler's kernel events of
+   add_image calls 200-219 profiled inside the run (never more than the
+   count; phases 8, 13 and 14 profile their last 20 calls, the driver and
+   the live tool 20 of theirs); host syncs per frame (sync debug mode
+   plus the stage timers' synchronizes) and device ops and time of the
+   first keyframe step and the next, from replays of the 20 frames holding
+   it;
+8. ``FrameHandler`` (accurate) over frames 1-120: no failed frame, the
    first keyframe runs local BA;
 9. the ``bench.py --bootstrap`` protocol (fast): ``add_image`` from frame
    0 at stride 5 until the default stage, ``state_from_handler``, then
    ``vo_step`` (graphed) to frame 440: the bootstrap frame, its inliers
    and the Sim3-aligned ATE median over bench's window within the JAX CPU
-   figure +10%; 4 K1 and 1 K2 kernel events per frame over the last 5
-   (the profiler's);
+   figure +10% (the bootstrap run checked is the second, which replays the
+   stage graphs the first captured, counted and profiled); 4 K1 and 1 K2
+   kernel events per frame over the last 5 (the profiler's);
 10. relocalization: a blank frame fails, the next frame relocalizes, then
    ``relocalize_frame_at_pose`` and ``global_ba``;
 11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
@@ -74,7 +83,7 @@ one, or without the port beside it.  Phases, each fatal on failure:
    blender layout (PNG written with zlib, depth maps of every 40th frame),
    then ``rpg_svo_tpu_torch.tools.benchmark.main`` with ``--dataset
    blender ... --noise-sigma 1.0 --trace-depth --ply`` in a subprocess
-   that counts the kernels' launches over the run: its ATE RMSE within
+   that counts and profiles 20 of its frames: its ATE RMSE within
    the JAX driver's CPU figure on the same files +10%, every output file;
    the driver's own host syncs from a run of its first 30 images here;
 16. the offline driver on the EuRoC layout (every 5th frame as PGM,
@@ -89,7 +98,8 @@ one, or without the port beside it.  Phases, each fatal on failure:
 18. the live entry point as a user starts it: ``python3 -c LIVE_STUB``
    runs ``rpg_svo_tpu_torch.tools.live.main`` on its synthetic source
    (the bench scene, 441 frames, add_image from frame 0 at stride 1) with
-   ``--traj-out``, its launches counted inside: the bootstrap frame equal
+   ``--traj-out``, 20 frames counted and profiled inside: the
+   bootstrap frame equal
    to the JAX tool's on the CPU, no failed frame after it, the Sim3 ATE
    median of the TUM output within the JAX figure +10%, ms and launches
    per frame;
@@ -180,7 +190,20 @@ one, or without the port beside it.  Phases, each fatal on failure:
    inside ``vo_scan`` 4 K1 and 1 K2 kernel events and under 50 host aten
    ops; one ``vo_step`` call: 0 host syncs, 4 K1 and 1 K2 events, under
    250 host aten ops, its copy in and copy out alone (host aten ops and
-   device us); slot MB, capture s and pool MB.
+   device us); slot MB, capture s and pool MB;
+27. ``FrameHandler``'s jitted stages as CUDA graphs (``graphed.jit``),
+   every graph dropped first: both presets over frames 1-120 with graphs
+   and under ``graphed.disable()`` (the eager reference): within 1e-6 m
+   (fast) and 1e-5 m (accurate) of each other, the same keyframes and
+   results, no capture after the first keyframe, no graph evicted; over
+   the 10 frames from the snapshot before the first keyframe, each way:
+   host ms per frame (median and range of 5 interleaved rounds), device
+   ms and busy share, host aten ops, host syncs (no more graphed than
+   eager), K1/K2 launches per frame as counted (equal both ways) and the
+   profiler's kernel events (never more); the MB copied into
+   and out of the stages per frame and the copies' device time; per
+   wrapped function its graphs, captures, input-buffer MB (shared between
+   stages) and pool MB.
 """
 
 from __future__ import annotations
@@ -224,7 +247,7 @@ PRESET_FRAMES = {"fast": 120, "accurate": 120}
 # bench scene on the CPU (tests/_torch_port.py jax_reference): 0.48393 mm
 # median and 1.33266 mm max over frames 41-440, +10% and +20%
 HANDLER_LIMITS_MM = (0.48393 * 1.1, 1.33266 * 1.2)
-HANDLER_ACC_FRAMES = 100
+HANDLER_ACC_FRAMES = 120
 # bench.py --bootstrap's protocol: the JAX figure on the CPU (same script):
 # bootstrap at frame 165, ATE median 0.16054 mm over frames 166-405, +10%
 BOOT_STRIDE = 5
@@ -253,6 +276,13 @@ DRIVER_OUTPUTS = ("traj_estimate.txt", "trace.csv", "translation_error.txt",
 DRIVER_SYNC_FRAMES = 30        # the in-process run that counts host syncs
 DRIVER_FILES = ("benchmark.py:", "trajectory.py:")   # the driver's own syncs
 DRIVER_TIMEOUT_S = 600
+# the add_image calls profiled inside the driver's, the live tool's and
+# the 440-frame handler's runs (after the bootstraps and the first
+# keyframe's captures); the 120-frame handler runs profile their last
+# EVENTS_WINDOW
+EVENTS_FROM = 200
+EVENTS_WINDOW = 20
+EUROC_EVENTS_FROM = 50         # the EuRoC run's (89 images)
 EXPERIMENT_IMAGES = 60         # the experiment YAML's run on the EuRoC tree
 CKPT_AT = 100                  # the ATAN handler is saved after this frame
 CKPT_FRAMES = 20               # ATAN_FRAMES = CKPT_AT + CKPT_FRAMES
@@ -334,6 +364,10 @@ GRAPH_MAX_HOST_OPS = 50        # aten ops dispatched per replayed frame
 GRAPH_MAX_CALL_OPS = 250
 GRAPH_ROUNDS, GRAPH_TIMED = 5, 10   # host ms: rounds, frames per round
 KEPT_AGAIN = 3                 # phase 26: frames of the second vo_scan
+HG_FRAMES = 120                # phase 27: FrameHandler frames each way
+HG_TOL_M = {"fast": 1e-6, "accurate": 1e-5}   # graphed against eager
+HG_WINDOW = 10                 # phase 27: timed frames, from the snapshot
+HG_ROUNDS = 5                  # before the first keyframe, in rounds
 MESH_TOL = 1e-6                # phase 22: mesh programs against one device
 MESH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -574,6 +608,11 @@ def _raw_profile(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
+    return out, _count_events(torch, prof)
+
+
+def _count_events(torch, prof) -> dict:
+    """``_raw_profile``'s figures of a finished profile."""
     dev, host = [], 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
@@ -581,12 +620,16 @@ def _raw_profile(torch, fn):
         elif e.name().startswith("aten::"):
             host += 1
     names = [e.name() for e in dev]
-    return out, {"device_ops": len(dev),
+    return {"device_ops": len(dev),
                  "device_ms": sum(e.duration_ns() for e in dev) / 1e6,
                  "tile_gather": sum("tile_gather_kernel" in n for n in names),
                  "sparse_align": sum("sparse_align_kernel" in n
                                      for n in names),
                  "nccl_kernels": sum("nccl" in n.lower() for n in names),
+                 # the jitted stages' copies in and out (_foreach_copy_)
+                 "foreach_copy_ms": sum(
+                     e.duration_ns() for e in dev
+                     if "multi_tensor_apply" in e.name()) / 1e6,
                  "memcpy": sum("memcpy" in n.lower() for n in names),
                  "host_aten_ops": host}
 
@@ -621,6 +664,56 @@ def _host_syncs(torch, fn):
     return out, syncs
 
 
+@contextlib.contextmanager
+def _add_image_events(first: int, n: int):
+    """Yields a dict that gets ``_raw_profile``'s figures (K1 and K2
+    kernel events, device ops and ms, host aten ops) of FrameHandler
+    ``add_image`` calls first..first + n - 1 (0-based, counted inside the
+    block), profiled as one window, the window's host seconds (and with
+    the profiler's start, stop and event reading: ``span_seconds``), its
+    K1 and K2 launches as counted (``_run_launches``) and its stage
+    captures.  A subprocess (the driver, the live tool) runs it around its
+    main()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rpg_svo_tpu_torch.core import pipeline
+    orig = pipeline.FrameHandler.add_image
+    res = {"first_call": first, "frames": 0}
+    calls = [0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def add_image(self, *args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        if i == first:
+            res["start"] = (_run_launches(), _jit_captures())
+            res["t_span"] = time.perf_counter()
+            prof.__enter__()
+            res["t0"] = time.perf_counter()
+        out = orig(self, *args, **kwargs)
+        if i == first + n - 1:
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - res.pop("t0")
+            prof.__exit__(None, None, None)
+            (c0, k0), c1 = res.pop("start"), _run_launches()
+            res.update(_count_events(torch, prof), frames=n,
+                       captures=_jit_captures() - k0,
+                       counted={k: c1[k] - c0[k] for k in c1})
+            # the window with the profiler's start, stop and event reading
+            # (seconds each on the H100): what a caller leaves out of its
+            # unprofiled ms per frame
+            res["span_seconds"] = time.perf_counter() - res.pop("t_span")
+        return out
+
+    pipeline.FrameHandler.add_image = add_image
+    try:
+        yield res
+    finally:
+        pipeline.FrameHandler.add_image = orig
+        if "t0" in res:
+            prof.__exit__(None, None, None)
+
+
 def _snapshot(fh):
     """The handler as it stands: its tensors are never written in place,
     so a shallow copy (with its own initializer and log) keeps the
@@ -640,10 +733,12 @@ def _cfg(preset: str):
 def _eager_step(state, img, cam, cfg, ncx, ncy, shape):
     """The step's eager body, out of place: what ``vo_step`` runs on the
     CPU, and on the card the reference of its graphs (every op dispatched
-    from Python, so the wrappers count every kernel launch)."""
-    from rpg_svo_tpu_torch.core import fused
-    return fused._vo_step(state, img, cam, cfg, ncx, ncy, shape,
-                          inplace=False)
+    from Python, so the wrappers count every kernel launch): inside
+    ``graphed.disable()``, so that its jitted stages run eagerly too."""
+    from rpg_svo_tpu_torch.core import fused, graphed
+    with graphed.disable():
+        return fused._vo_step(state, img, cam, cfg, ncx, ncy, shape,
+                              inplace=False)
 
 
 class _Scene(NamedTuple):
@@ -658,14 +753,19 @@ class _Scene(NamedTuple):
 
 
 def _reset_counts():
+    """Zero the wrappers' launch counts and the graph replays' (with the
+    stage graphs' capture and replay counts)."""
     import torch
+    from rpg_svo_tpu_torch.core import graphed
     from rpg_svo_tpu_torch.ops import align_kernel, tiles
     torch.cuda.synchronize()
     tiles.tile_gather_kernel.launches = 0
     align_kernel.sparse_align_kernel.launches = 0
+    graphed.reset_jit_counts()
 
 
 def _read_counts() -> dict:
+    """The wrappers' own launch counts (no graph replay among them)."""
     import torch
     from rpg_svo_tpu_torch.ops import align_kernel, tiles
     torch.cuda.synchronize()
@@ -673,10 +773,37 @@ def _read_counts() -> dict:
             "sparse_align": align_kernel.sparse_align_kernel.launches}
 
 
-def _handler_run(scene, cfg, n, camera, frames, first, label):
+def _run_launches() -> dict:
+    """K1 and K2 launches since ``_reset_counts``: the wrappers' own and
+    those of graph replays (each replay launches what its capture recorded,
+    ``graphed.replayed_launches``)."""
+    from rpg_svo_tpu_torch.core import graphed
+    rep = graphed.replayed_launches()
+    return {k: v + rep.get(k, 0) for k, v in _read_counts().items()}
+
+
+def _jit_captures() -> int:
+    from rpg_svo_tpu_torch.core import graphed
+    return sum(v["captures"] for v in graphed.jit_stats().values())
+
+
+def _seen_by_profiler(ev: dict, counted: dict, label) -> dict:
+    """The profiler's K1 and K2 events of a run against its counted
+    launches: never more; returns the launches it missed."""
+    seen = {k: ev[k] for k in counted}
+    assert all(seen[k] <= counted[k] for k in counted), (label, seen,
+                                                          counted)
+    return {k: counted[k] - seen[k] for k in counted}
+
+
+def _handler_run(scene, cfg, n, camera, frames, first, label, events_from):
     """FrameHandler from ground-truth depth (first: frame 0's image and
     depth) over frames 1..n: (summary, infos, positions, snapshots every
-    SNAP_EVERY frames)."""
+    SNAP_EVERY frames).  The run's K1 and K2 launches are counted over the
+    whole run (``_run_launches``: the stages replay CUDA graphs), and
+    EVENTS_WINDOW of its add_image calls from ``events_from`` (0-based)
+    are profiled inside it; ms per frame leaves that window out, with the
+    profiler's start and stop."""
     import torch
     from rpg_svo_tpu_torch.core.pipeline import FrameHandler
     fh = FrameHandler(camera, cfg, scene.shape, device=scene.dev)
@@ -685,14 +812,16 @@ def _handler_run(scene, cfg, n, camera, frames, first, label):
     infos, pos = [], []
     _reset_counts()
     t0 = time.perf_counter()
-    for i in range(1, n + 1):
-        infos.append(fh.add_image(frames[i - 1], i / 50.0))
-        pos.append(fh.last_frame.T_f_w.inverse().t)
-        if i % SNAP_EVERY == 0:
-            snaps[i] = _snapshot(fh)
+    with _add_image_events(events_from, EVENTS_WINDOW) as ev:
+        for i in range(1, n + 1):
+            infos.append(fh.add_image(frames[i - 1], i / 50.0))
+            pos.append(fh.last_frame.T_f_w.inverse().t)
+            if i % SNAP_EVERY == 0:
+                snaps[i] = _snapshot(fh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = _run_launches()
+    assert ev["frames"] == EVENTS_WINDOW, ev
     pos = torch.stack(pos).cpu().numpy()
     assert pos.shape == (n, 3) and np.isfinite(pos).all()
     terr = np.linalg.norm(pos - scene.gt[:n], axis=-1)[TIMED_FROM - 1:]
@@ -700,23 +829,37 @@ def _handler_run(scene, cfg, n, camera, frames, first, label):
     kfs = [i for i, f in enumerate(infos, 1) if f.get("is_keyframe")]
     stage_ms = {k: sum(f.get(k, 0.0) for f in infos) / n * 1e3
                 for k in TRACE_NAMES}
+    assert kfs, f"FrameHandler {label}: no keyframe"
+    events = {k: ev[k] for k in ("tile_gather", "sparse_align")}
+    misses = _seen_by_profiler(ev, ev["counted"], label)
+    window = [events_from + 1, events_from + EVENTS_WINDOW]
     summary = {"frames": n, "median_terr_mm": float(np.median(terr)) * 1e3,
                "max_terr_mm": float(terr.max()) * 1e3,
-               "ms_per_frame": wall / n * 1e3,
+               "ms_per_frame": (wall - ev["span_seconds"])
+               / (n - EVENTS_WINDOW) * 1e3,
+               "ms_per_frame_with_window": wall / n * 1e3,
                "stage_ms_per_frame": stage_ms,
                "timer_syncs_per_frame":
                    sum(f["timer_syncs"] for f in infos) / n,
                "keyframes": kfs, "failed": failed, "launches": launches,
-               "launches_per_frame": {k: v / n for k, v in launches.items()}}
+               "launch_frames": n,
+               "launches_per_frame": {k: v / n for k, v in launches.items()},
+               "window_frames": window, "window_events": events,
+               "window_counted": ev["counted"],
+               "window_profiler_misses": misses,
+               "window_captures": ev["captures"], "event_window": ev}
     print(f"# FrameHandler {label}: {n} frames, "
-          f"{summary['ms_per_frame']:.2f} ms/frame; terr over frames "
-          f"{TIMED_FROM}-{n}: median {summary['median_terr_mm']:.4f} mm, "
-          f"max {summary['max_terr_mm']:.4f} mm; keyframes {kfs}; failed "
-          f"{failed}; launches {launches}; stage ms/frame "
+          f"{summary['ms_per_frame']:.2f} ms/frame outside the profiled "
+          f"window; terr over frames {TIMED_FROM}-{n}: median "
+          f"{summary['median_terr_mm']:.4f} mm, max "
+          f"{summary['max_terr_mm']:.4f} mm; keyframes {kfs}; failed "
+          f"{failed}; launches {launches} over the run; frames "
+          f"{window[0]}-{window[1]} profiled: kernel events {events}, "
+          f"counted {ev['counted']}, {ev['captures']} captures; stage "
+          f"ms/frame "
           + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}),
           flush=True)
     assert not failed, f"FrameHandler {label}: frames failed: {failed}"
-    assert kfs, f"FrameHandler {label}: no keyframe"
     return summary, infos, pos, snaps
 
 
@@ -756,7 +899,7 @@ def _camera_run(scene, cfg, camera, label, n, limits):
     frames = [render_frame(camera, ds.tex, ds.poses[i], scene.shape)[0]
               for i in range(1, n + 1)]
     sm, infos, pos, snaps = _handler_run(scene, cfg, n, camera, frames,
-                                         first, label)
+                                         first, label, n - EVENTS_WINDOW)
     import torch
     sm["replay"] = _sync_replay(snaps, frames, infos, pos, sm["keyframes"][0])
     sm["host_syncs_per_frame"] = sm["replay"]["host_syncs_per_frame"]
@@ -836,40 +979,34 @@ def _bench_files(ds):
                   for i in range(len(ds.poses))]
 
 
-# the driver as a subprocess, as a user starts it, with the kernels' launch
-# counts read inside it: set to 0 just before main() and printed just after
+# the driver as a subprocess, as a user starts it: EVENTS_WINDOW add_image
+# calls from EVENTS_FROM counted and profiled inside it
 DRIVER_STUB = (
     "import json\n"
-    "import torch\n"
-    "from rpg_svo_tpu_torch.ops import align_kernel, tiles\n"
+    "import chip_smoke\n"
     "from rpg_svo_tpu_torch.tools import benchmark\n"
-    "tiles.tile_gather_kernel.launches = 0\n"
-    "align_kernel.sparse_align_kernel.launches = 0\n"
-    "benchmark.main()\n"
-    "torch.cuda.synchronize()\n"
-    "print('# launches ' + json.dumps({\n"
-    "    'tile_gather': tiles.tile_gather_kernel.launches,\n"
-    "    'sparse_align': align_kernel.sparse_align_kernel.launches}))\n")
+    f"with chip_smoke._add_image_events({EVENTS_FROM}, {EVENTS_WINDOW}) "
+    "as ev:\n"
+    "    benchmark.main()\n"
+    "print('# launches ' + json.dumps(ev))\n")
 
 
-# tools/live as a subprocess, as a user starts it, its launch counts read
-# inside it: set to 0 just before main() and printed just after
+# tools/live as a subprocess, as a user starts it, counted and profiled
+# inside it as the driver is
 LIVE_STUB = (
     "import json\n"
     "import sys\n"
     "import time\n"
     "import torch\n"
-    "from rpg_svo_tpu_torch.ops import align_kernel, tiles\n"
+    "import chip_smoke\n"
     "from rpg_svo_tpu_torch.tools import live\n"
-    "tiles.tile_gather_kernel.launches = 0\n"
-    "align_kernel.sparse_align_kernel.launches = 0\n"
     "t0 = time.perf_counter()\n"
-    "live.main(sys.argv[1:])\n"
+    f"with chip_smoke._add_image_events({EVENTS_FROM}, {EVENTS_WINDOW}) "
+    "as ev:\n"
+    "    live.main(sys.argv[1:])\n"
     "torch.cuda.synchronize()\n"
-    "print('# launches ' + json.dumps({\n"
-    "    'seconds': time.perf_counter() - t0,\n"
-    "    'tile_gather': tiles.tile_gather_kernel.launches,\n"
-    "    'sparse_align': align_kernel.sparse_align_kernel.launches}))\n")
+    "print('# launches ' + json.dumps(dict(\n"
+    "    ev, total_seconds=time.perf_counter() - t0)))\n")
 
 
 def _driver_syncs(torch, run, n_frames: int) -> dict:
@@ -907,8 +1044,12 @@ def _blender_phase(root: Path, work: Path, ds, t_all, q_all, u8) -> dict:
                           cwd=root, capture_output=True, text=True,
                           timeout=DRIVER_TIMEOUT_S)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
-    launches = json.loads(next(x for x in proc.stdout.splitlines()
-                               if x.startswith("# launches "))[11:])
+    ev = json.loads(next(x for x in proc.stdout.splitlines()
+                         if x.startswith("# launches "))[11:])
+    assert ev["frames"] == EVENTS_WINDOW, ev
+    launches = ev["counted"]
+    events = {k: ev[k] for k in launches}
+    misses = _seen_by_profiler(ev, launches, "driver_blender")
     rep = json.loads((out_dir / "report.json").read_text())
     for name in DRIVER_OUTPUTS:
         assert (out_dir / name).is_file(), name
@@ -921,11 +1062,14 @@ def _blender_phase(root: Path, work: Path, ds, t_all, q_all, u8) -> dict:
     assert sync_rep["frames"] == DRIVER_SYNC_FRAMES - 1, sync_rep["frames"]
     res = {"frames": rep["frames"], "images": n_images, "fps": rep["fps"],
            "wall_s": rep["wall_s"], "write_s": write_s,
-           "ms_per_frame": rep["wall_s"] / rep["frames"] * 1e3,
+           # the profiled window aside, with the profiler's start and stop
+           "ms_per_frame": (rep["wall_s"] - ev["span_seconds"])
+           / (rep["frames"] - ev["frames"]) * 1e3,
            "ate": rep["ate"], "rpe_delta1": rep["rpe_delta1"],
            "depth_error": rep["depth_error"], "syncs": syncs,
-           "launches": launches,
-           "launches_per_image": {k: v / n_images
+           "launches": launches, "launch_frames": ev["frames"],
+           "events": events, "profiler_misses": misses, "event_window": ev,
+           "launches_per_image": {k: v / ev["frames"]
                                   for k, v in launches.items()}}
     print(f"# driver, blender protocol: {rep['frames']} frames, "
           f"fps {rep['fps']}, wall {rep['wall_s']} s (the tree written in "
@@ -933,8 +1077,11 @@ def _blender_phase(root: Path, work: Path, ds, t_all, q_all, u8) -> dict:
           f"(limit {DRIVER_ATE_LIMITS_M['blender'] * 1e3:.4f}), RPE(1) "
           f"trans rmse {rep['rpe_delta1']['trans_rmse'] * 1e3:.4f} mm, "
           f"depth error p50 {rep['depth_error']['p50'] * 1e3:.3f} mm over "
-          f"{rep['depth_error']['n']} features; launches {launches} over "
-          f"{n_images} images; the driver's own syncs "
+          f"{rep['depth_error']['n']} features; launches {launches}, "
+          f"kernel events {events} over {ev['frames']} frames from call "
+          f"{EVENTS_FROM} ({ev['captures']} captures); "
+          f"{res['ms_per_frame']:.2f} ms/frame outside them; the driver's "
+          f"own syncs "
           f"{syncs['driver_syncs_per_frame']:.2f} per frame over frames 1-"
           f"{DRIVER_SYNC_FRAMES - 1} at {syncs['driver_sync_sites']}",
           flush=True)
@@ -959,10 +1106,13 @@ def _euroc_phase(root: Path, work: Path, shape, t_all, q_all, u8) -> dict:
         "--dataset", "euroc", "--path", str(work / "euroc"), "--frames",
         str(N_FRAMES), "--cam", cam_arg, "--out", str(work / "out_euroc")])
     printed = io.StringIO()
-    _reset_counts()
-    with contextlib.redirect_stdout(printed):
+    with contextlib.redirect_stdout(printed), \
+            _add_image_events(EUROC_EVENTS_FROM, EVENTS_WINDOW) as ev:
         rep = bench_driver.run(args)
-    launches = _read_counts()
+    assert ev["frames"] == EVENTS_WINDOW, ev
+    launches = ev["counted"]
+    events = {k: ev[k] for k in launches}
+    misses = _seen_by_profiler(ev, launches, "driver_euroc")
     source = [x for x in printed.getvalue().splitlines()
               if x.startswith("# image source")]
     traj = np.loadtxt(work / "out_euroc" / "traj_estimate.txt", ndmin=2)
@@ -973,8 +1123,9 @@ def _euroc_phase(root: Path, work: Path, shape, t_all, q_all, u8) -> dict:
            "image_source": source,
            "bootstrap_frame": int(round(traj[0, 0] * 50)),
            "ate": rep["ate"], "rpe_delta1": rep.get("rpe_delta1"),
-           "launches": launches,
-           "launches_per_image": {k: v / len(sel)
+           "launches": launches, "launch_frames": ev["frames"],
+           "events": events, "profiler_misses": misses, "event_window": ev,
+           "launches_per_image": {k: v / ev["frames"]
                                   for k, v in launches.items()}}
     print(f"# driver, EuRoC layout: {source}; {len(sel)} images, the "
           f"default stage from frame {res['bootstrap_frame']}; fps "
@@ -982,7 +1133,9 @@ def _euroc_phase(root: Path, work: Path, shape, t_all, q_all, u8) -> dict:
           f"{rep['ate']['rmse'] * 1e3:.4f} mm (limit "
           f"{DRIVER_ATE_LIMITS_M['euroc'] * 1e3:.4f}, scale "
           f"{rep['ate']['scale']:.4f}, {rep['ate']['n']} poses); launches "
-          f"{launches}", flush=True)
+          f"{launches}, kernel events {events} over {ev['frames']} frames "
+          f"from call {EUROC_EVENTS_FROM} ({ev['captures']} captures)",
+          flush=True)
     assert source and "native prefetcher" in source[0], source
     assert rep["ate"]["rmse"] <= DRIVER_ATE_LIMITS_M["euroc"], rep["ate"]
     (root / "chiprun_out" / "chip_smoke_driver_euroc_report.json") \
@@ -1033,13 +1186,21 @@ def _live_phase(root: Path, work: Path, t_all: np.ndarray) -> dict:
                            *live_args(tum)], cwd=root, capture_output=True,
                           text=True, timeout=LIVE_TIMEOUT_S)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
-    counts = json.loads(next(x for x in proc.stdout.splitlines()
-                             if x.startswith("# launches "))[11:])
-    seconds = counts.pop("seconds")
+    ev = json.loads(next(x for x in proc.stdout.splitlines()
+                         if x.startswith("# launches "))[11:])
+    assert ev["frames"] == EVENTS_WINDOW, ev
+    counts = ev["counted"]
+    events = {k: ev[k] for k in counts}
+    misses = _seen_by_profiler(ev, counts, "live")
+    seconds = ev["total_seconds"]
     fig = live_figures(proc.stdout, tum, t_all)
     res = dict(fig, seconds=seconds, launches=counts,
-               ms_per_frame=seconds / fig["frames"] * 1e3,
-               launches_per_frame={k: v / fig["frames"]
+               launch_frames=ev["frames"], events=events,
+               profiler_misses=misses, event_window=ev,
+               # the profiled window aside, with the profiler's start and stop
+               ms_per_frame=(seconds - ev["span_seconds"])
+               / (fig["frames"] - ev["frames"]) * 1e3,
+               launches_per_frame={k: v / ev["frames"]
                                    for k, v in counts.items()})
     (root / "chiprun_out" / "chip_smoke_live_stdout.txt").write_text(
         proc.stdout)
@@ -1049,7 +1210,9 @@ def _live_phase(root: Path, work: Path, t_all: np.ndarray) -> dict:
           f"failed after it {fig['failed_after_bootstrap']}; Sim3 ATE median "
           f"{fig['ate_median_mm']:.4f} mm over {fig['poses_after']} poses "
           f"(limit {LIVE_ATE_LIMIT_MM:.4f}), scale {fig['scale']:.4f}; "
-          f"launches {counts}, per frame {res['launches_per_frame']}",
+          f"launches {counts}, kernel events {events} over {ev['frames']} "
+          f"frames from call {EVENTS_FROM} ({ev['captures']} captures), per "
+          f"frame {res['launches_per_frame']}",
           flush=True)
     assert fig["frames"] == N_FRAMES, fig["frames"]
     assert fig["bootstrap_frame"] == LIVE_BOOT_FRAME, fig
@@ -1096,11 +1259,14 @@ def _surface_phase(ds, dev) -> dict:
         assert d <= tol, (name, d, tol)
 
     def both(fn):
-        """fn(device) on the card (launches counted) and on the CPU."""
-        _reset_counts()
-        card = fn(dev)
-        counts = _read_counts()
-        return card, fn(cpu), counts
+        """fn(device) on the card and on the CPU, with the card call's
+        kernel events: its jitted functions replay CUDA graphs, so a first
+        call captures them, and the second, profiled, is the call whose
+        result is compared."""
+        fn(dev)
+        card, ev = _raw_profile(torch, lambda: fn(dev))
+        return card, fn(cpu), {k: ev[k] for k in ("tile_gather",
+                                                   "sparse_align")}
 
     # feature alignment: mixed 1-D/2-D items on levels 0-2 (0 for the raw
     # image), bordered patches cut at px, starts up to 2.5 px away
@@ -2084,6 +2250,180 @@ def _kept_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
     return res
 
 
+def _handler_graph_phase(scene, cfgs, cam, imgs, first) -> dict:
+    """Phase 27: FrameHandler's jitted stages as CUDA graphs.  Every graph
+    is dropped first, so each stage captures on its first call.  Per
+    preset: the handler from ground-truth depth over frames 1-HG_FRAMES
+    with graphs and again under ``graphed.disable()`` (the eager
+    reference): the largest gap between the two tracks (HG_TOL_M), the
+    same keyframes and results, captures after the first keyframe (none)
+    and evictions (none); then over the HG_WINDOW frames from the snapshot
+    before the first keyframe, each way: host ms per frame (the median of
+    HG_ROUNDS interleaved rounds, each from the snapshot), device ms,
+    device busy share, host aten ops, K1/K2 launches per frame as
+    counted (``_run_launches``; equal both ways) and the profiler's kernel
+    events (one profiled replay of the window, its misses reported), host
+    syncs per frame (sync debug mode plus the stage timers'), and with
+    graphs the MB copied in and out per frame and the copies' device ms;
+    per wrapped
+    function its graphs, captures, replays, input-buffer MB (the buffers
+    are shared between stages), pool MB and capture seconds."""
+    import torch
+    from rpg_svo_tpu_torch.core import graphed
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
+    t_phase = time.perf_counter()
+    graphed.clear()
+    res = {}
+    ways = ("graphed", "eager")
+
+    def mode(way):
+        return graphed.disable() if way == "eager" \
+            else contextlib.nullcontext()
+    for preset in ("fast", "accurate"):
+        cfg = cfgs[preset]
+        runs = {}
+        for way in ways:
+            if way == "graphed":
+                graphed.clear()         # each stage captures in this run
+            graphed.reset_jit_counts()
+            with mode(way):
+                fh = FrameHandler(cam, cfg, scene.shape, device=scene.dev)
+                fh.set_first_frame_with_depth(first[0], scene.T0.inverse(),
+                                              first[1])
+                snaps = {0: _snapshot(fh)}
+                infos, pos, caps = [], [], []
+                t0 = time.perf_counter()
+                for i in range(1, HG_FRAMES + 1):
+                    infos.append(fh.add_image(imgs[i - 1], i / 50.0))
+                    pos.append(fh.last_frame.T_f_w.inverse().t)
+                    caps.append(sum(v["captures"] for v in
+                                    graphed.jit_stats().values()))
+                    if i % SNAP_EVERY == 0:
+                        snaps[i] = _snapshot(fh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs[way] = {
+                "infos": infos, "snaps": snaps, "caps": caps,
+                "stats": graphed.jit_stats(),
+                "pos": torch.stack(pos).cpu().numpy(),
+                "ms_per_frame": wall / HG_FRAMES * 1e3,
+                "kfs": [i for i, f in enumerate(infos, 1)
+                        if f.get("is_keyframe")],
+                "evictions": sum(v["evictions"] for v in
+                                 graphed.jit_stats().values())}
+        g, e = runs["graphed"], runs["eager"]
+        k0 = g["kfs"][0] if g["kfs"] else HG_FRAMES
+        gap = float(np.abs(g["pos"] - e["pos"]).max())
+        caps_after = g["caps"][-1] - g["caps"][k0 - 1]
+        same_results = [f["result"] for f in g["infos"]] \
+            == [f["result"] for f in e["infos"]]
+        # the window: HG_WINDOW frames from the snapshot before k0
+        s = max(i for i in g["snaps"] if i < k0)
+        window = range(s + 1, s + HG_WINDOW + 1)
+
+        def run_window(way):
+            h = _snapshot(runs[way]["snaps"][s])
+            with mode(way):
+                return [h.add_image(imgs[j - 1], j / 50.0) for j in window]
+        rounds = {w: [] for w in ways}
+        for r in range(HG_ROUNDS):
+            for way in (ways if r % 2 == 0 else ways[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_window(way)
+                torch.cuda.synchronize()
+                rounds[way].append((time.perf_counter() - t0)
+                                   / HG_WINDOW * 1e3)
+        per = {}
+        for way in ways:
+            # one profiled replay of the window, its launches counted
+            _reset_counts()
+            _, ev = _raw_profile(torch, lambda: run_window(way))
+            counted = _run_launches()
+            misses = _seen_by_profiler(ev, counted, (preset, way))
+            mb1 = graphed.jit_stats()
+            out, syncs = _host_syncs(torch, lambda: run_window(way))
+            host = statistics.median(rounds[way])
+            per[way] = {
+                "host_ms_per_frame": host, "rounds_ms": rounds[way],
+                "device_ms_per_frame": ev["device_ms"] / HG_WINDOW,
+                "device_ops_per_frame": ev["device_ops"] / HG_WINDOW,
+                "busy_share": ev["device_ms"] / HG_WINDOW / host,
+                "host_aten_ops_per_frame": ev["host_aten_ops"] / HG_WINDOW,
+                "tile_gather": counted["tile_gather"],
+                "sparse_align": counted["sparse_align"],
+                "events": {k: ev[k] for k in counted},
+                "profiler_misses": misses,
+                "events_per_frame": {k: ev[k] / HG_WINDOW for k in counted},
+                "launches_per_frame": {k: v / HG_WINDOW
+                                       for k, v in counted.items()},
+                "host_syncs_per_frame": (len(syncs) + sum(
+                    f["timer_syncs"] for f in out)) / HG_WINDOW,
+                "debug_mode_syncs_per_frame": len(syncs) / HG_WINDOW,
+                "sync_sites": sorted(set(syncs)),
+                "copy_device_ms_per_frame": ev["foreach_copy_ms"]
+                / HG_WINDOW,
+                "mb_in_per_frame": sum(
+                    v["in_copied_mb"] for v in mb1.values()) / HG_WINDOW,
+                "mb_out_per_frame": sum(
+                    v["out_copied_mb"] for v in mb1.values()) / HG_WINDOW}
+        stats = {k.rsplit(".", 1)[-1]: {
+            f: v[f] for f in ("graphs", "captures", "replays", "in_mb",
+                              "pool_mb", "capture_s")}
+            for k, v in g["stats"].items() if v["graphs"]}
+        res[preset] = {
+            "frames": HG_FRAMES, "gap_m": gap, "keyframes": g["kfs"],
+            "keyframes_eager": e["kfs"], "same_results": same_results,
+            "captures": g["caps"][-1], "captures_to_first_keyframe":
+            g["caps"][k0 - 1], "captures_after_first_keyframe": caps_after,
+            "evictions": g["evictions"],
+            "ms_per_frame_run": {w: runs[w]["ms_per_frame"] for w in ways},
+            "window": [s + 1, s + HG_WINDOW], "by_way": per,
+            "functions": stats, "buffer_mb": graphed.buffer_mb(),
+            "device_memory_mb": torch.cuda.memory_reserved() / 1e6,
+            "pool_mb": sum(v["pool_mb"] for v in stats.values())}
+        gp, ep = per["graphed"], per["eager"]
+        print(f"# FrameHandler {preset} graphed against eager over frames "
+              f"1-{HG_FRAMES}: gap {gap:.3e} m (tol {HG_TOL_M[preset]}), "
+              f"keyframes {g['kfs']} / {e['kfs']}; captures {g['caps'][-1]} "
+              f"({caps_after} after frame {k0}), evictions "
+              f"{g['evictions']}; whole run {g['ms_per_frame']:.2f} / "
+              f"{e['ms_per_frame']:.2f} ms/frame; frames {s + 1}-"
+              f"{s + HG_WINDOW}, graphed / eager: host ms per frame "
+              f"{gp['host_ms_per_frame']:.2f} ({min(gp['rounds_ms']):.2f}-"
+              f"{max(gp['rounds_ms']):.2f}) / {ep['host_ms_per_frame']:.2f} "
+              f"({min(ep['rounds_ms']):.2f}-{max(ep['rounds_ms']):.2f}), "
+              f"device {gp['device_ms_per_frame']:.3f} / "
+              f"{ep['device_ms_per_frame']:.3f} ms, busy "
+              f"{gp['busy_share']:.3f} / {ep['busy_share']:.3f}, host aten "
+              f"ops {gp['host_aten_ops_per_frame']:.1f} / "
+              f"{ep['host_aten_ops_per_frame']:.1f}, host syncs "
+              f"{gp['host_syncs_per_frame']:.2f} / "
+              f"{ep['host_syncs_per_frame']:.2f}, K1/K2 launches per frame "
+              f"{gp['launches_per_frame']} / {ep['launches_per_frame']} "
+              f"(kernel events {gp['events']} / {ep['events']}); copies "
+              f"{gp['mb_in_per_frame']:.1f} MB in and "
+              f"{gp['mb_out_per_frame']:.1f} MB out per frame, "
+              f"{gp['copy_device_ms_per_frame'] * 1e3:.1f} us on the card; "
+              f"input buffers {res[preset]['buffer_mb']:.1f} MB, pools "
+              f"{res[preset]['pool_mb']:.1f} MB; per function "
+              + json.dumps({k: [v["graphs"], round(v["in_mb"], 1),
+                                round(v["pool_mb"], 1)]
+                            for k, v in stats.items()}), flush=True)
+        assert not [f for f in g["infos"] if f["result"] == "failure"]
+        assert gap <= HG_TOL_M[preset], (preset, gap)
+        assert g["kfs"] == e["kfs"] and g["kfs"] and same_results, \
+            (preset, g["kfs"], e["kfs"])
+        assert caps_after == 0 and g["evictions"] == 0, res[preset]
+        assert (gp["tile_gather"], gp["sparse_align"]) \
+            == (ep["tile_gather"], ep["sparse_align"]), (gp, ep)
+        assert gp["tile_gather"] > 0 and gp["sparse_align"] > 0, gp
+        assert gp["host_syncs_per_frame"] <= ep["host_syncs_per_frame"], \
+            (gp["sync_sites"], ep["sync_sites"])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _mesh_world() -> int:
     """Phase 22, run in its own process: a process group of one rank on
     the card (NCCL) and each mesh program against its single-device
@@ -2687,11 +3027,12 @@ def main() -> int:
     phase(7)
     scene = _Scene(ds, shape, dev, T0, gt)
 
-    def handler_run(preset, n):
+    def handler_run(preset, n, events_from):
         return _handler_run(scene, cfgs[preset], n, cam, imgs, (img0, depth0),
-                            preset)
+                            preset, events_from)
 
-    handler, h_infos, h_pos, h_snaps = handler_run("fast", len(imgs))
+    handler, h_infos, h_pos, h_snaps = handler_run("fast", len(imgs),
+                                                   EVENTS_FROM)
     assert handler["median_terr_mm"] <= HANDLER_LIMITS_MM[0] \
         and handler["max_terr_mm"] <= HANDLER_LIMITS_MM[1], \
         (handler["median_terr_mm"], handler["max_terr_mm"], HANDLER_LIMITS_MM)
@@ -2722,7 +3063,8 @@ def main() -> int:
 
     # --- 8. FrameHandler, accurate, to the first keyframe and past it ------
     phase(8)
-    handler_acc, acc_infos, _, _ = handler_run("accurate", HANDLER_ACC_FRAMES)
+    handler_acc, acc_infos, _, _ = handler_run(
+        "accurate", HANDLER_ACC_FRAMES, HANDLER_ACC_FRAMES - EVENTS_WINDOW)
     acc_kf = handler_acc["keyframes"][0]
     assert "local_ba" in acc_infos[acc_kf - 1], "no local BA at the keyframe"
     lim = LIMITS_MM["accurate"]
@@ -2732,21 +3074,38 @@ def main() -> int:
     # --- 9. the bench.py --bootstrap protocol (fast) ------------------------
     phase(9)
     cfg = cfgs["fast"]
-    fh = FrameHandler(cam, cfg, shape, device=dev)
-    _reset_counts()
+
+    def bootstrap_run():
+        """(handler, bootstrap frame, inliers, add_image calls)."""
+        fh = FrameHandler(cam, cfg, shape, device=dev)
+        fh.add_image(img0, 0.0)
+        i, n_calls = 0, 1
+        while i + BOOT_STRIDE < N_FRAMES - 1:
+            i += BOOT_STRIDE
+            info = fh.add_image(imgs[i - 1], i / 50.0)
+            n_calls += 1
+            if fh.stage == "default":
+                return fh, i, info["init_inliers"], n_calls
+        raise AssertionError("the bootstrap never reached the default stage")
+    # a first run captures the bootstrap's stage graphs; the second, which
+    # replays them, is the run checked, timed (under the profiler) and
+    # counted
     t0 = time.perf_counter()
-    fh.add_image(img0, 0.0)
-    i, i_boot, n_calls = 0, None, 1
-    while i + BOOT_STRIDE < N_FRAMES - 1:
-        i += BOOT_STRIDE
-        info = fh.add_image(imgs[i - 1], i / 50.0)
-        n_calls += 1
-        if fh.stage == "default":
-            i_boot, inliers = i, info["init_inliers"]
-            break
-    boot_s = time.perf_counter() - t0
-    assert i_boot is not None, "the bootstrap never reached the default stage"
-    boot_launches = _read_counts()
+    bootstrap_run()
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+
+    def timed_bootstrap():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bootstrap_run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    ((fh, i_boot, inliers, n_calls), boot_s), ev = _raw_profile(
+        torch, timed_bootstrap)
+    boot_launches = _run_launches()
+    boot_events = {k_: ev[k_] for k_ in boot_launches}
+    boot_misses = _seen_by_profiler(ev, boot_launches, "bootstrap_handler")
     state = fused.state_from_handler(fh)
     # graphed vo_step: the wrappers count the slot's capture call at most;
     # the kernels of the last GRAPH_PROFILED frames are profiler events
@@ -2776,7 +3135,8 @@ def main() -> int:
     ate_b = ate_rmse(gt[i_boot:i_boot + n_bench], est[:n_bench])
     ate_all = ate_rmse(gt[i_boot:], est)
     bootstrap = {"frame": i_boot, "inliers": inliers, "add_image_calls":
-                 n_calls, "seconds": boot_s,
+                 n_calls, "seconds": boot_s, "capture_run_seconds": warm_s,
+                 "events": boot_events, "profiler_misses": boot_misses,
                  "bench_window": [i_boot + 1, i_boot + n_bench],
                  "ate_median_mm": ate_b["median"] * 1e3,
                  "ate_median_mm_to_end": ate_all["median"] * 1e3,
@@ -2788,12 +3148,14 @@ def main() -> int:
                  {k_: v / GRAPH_PROFILED for k_, v in track_launches.items()},
                  "track_wrapper_launches": track_wrapped}
     print(f"# bootstrap protocol: default stage at frame {i_boot} "
-          f"({inliers} inliers, {n_calls} add_image calls, {boot_s:.1f} s); "
+          f"({inliers} inliers, {n_calls} add_image calls, {boot_s:.1f} s "
+          f"under the profiler, {warm_s:.1f} s in the run that captured); "
           f"ATE median {bootstrap['ate_median_mm']:.4f} mm over frames "
           f"{i_boot + 1}-{i_boot + n_bench} (limit {BOOT_ATE_LIMIT_MM:.4f}), "
           f"{bootstrap['ate_median_mm_to_end']:.4f} mm to frame "
           f"{N_FRAMES - 1}; scale {ate_b['scale']:.4f}; failed {b_failed}; "
-          f"launches {boot_launches}, then graphed vo_step: kernel events "
+          f"launches {boot_launches}, kernel events {boot_events}, then "
+          f"graphed vo_step: kernel events "
           f"{track_launches} over the last {GRAPH_PROFILED} frames "
           f"(wrappers before them: {track_wrapped})", flush=True)
     assert not b_failed, b_failed
@@ -2803,21 +3165,25 @@ def main() -> int:
     phase(10)
     h = _snapshot(h_snaps[RELOC_FROM])
     black = torch.zeros(shape, device=dev)
-    _reset_counts()
-    r1 = h.add_image(black, 0.0)
-    assert r1["result"] == "failure" and h.stage == "relocalizing", r1
-    r2 = h.add_image(imgs[RELOC_FROM], 0.0)
-    reloc_err = float(np.linalg.norm(
-        h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM]))
-    assert r2["result"] != "failure" and h.stage == "default", r2
-    kf = h.map.kf
-    kf_id = int(kf.frame_id[kf.active].max())
-    at_pose = h.relocalize_frame_at_pose(
-        kf_id, SE3.identity(device=dev), imgs[RELOC_FROM + 1], 0.0)
+
+    def relocalize():
+        r1 = h.add_image(black, 0.0)
+        assert r1["result"] == "failure" and h.stage == "relocalizing", r1
+        r2 = h.add_image(imgs[RELOC_FROM], 0.0)
+        err = float(np.linalg.norm(
+            h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM]))
+        assert r2["result"] != "failure" and h.stage == "default", r2
+        kf = h.map.kf
+        kf_id = int(kf.frame_id[kf.active].max())
+        at_pose = h.relocalize_frame_at_pose(
+            kf_id, SE3.identity(device=dev), imgs[RELOC_FROM + 1], 0.0)
+        assert at_pose and h.stage == "default"
+        return r1, r2, err, kf_id, at_pose
+    # kernel events: the stages replay CUDA graphs
+    (r1, r2, reloc_err, kf_id, at_pose), ev = _raw_profile(torch, relocalize)
     at_pose_err = float(np.linalg.norm(
         h.last_frame.T_f_w.inverse().t.cpu().numpy() - gt[RELOC_FROM + 1]))
-    assert at_pose and h.stage == "default"
-    reloc_launches = _read_counts()
+    reloc_launches = {k_: ev[k_] for k_ in ("tile_gather", "sparse_align")}
     R_before = h.map.kf.R.clone()
     h.global_ba()
     moved = float(torch.abs(h.map.kf.R - R_before).max())
@@ -2832,7 +3198,7 @@ def main() -> int:
           f"{r1['result']}, next frame {r2['result']} (terr "
           f"{reloc_err * 1e3:.3f} mm); at the pose of keyframe {kf_id}: "
           f"{at_pose} (terr {at_pose_err * 1e3:.3f} mm); global BA moved "
-          f"rotations by up to {moved:.2e}; launches {reloc_launches}",
+          f"rotations by up to {moved:.2e}; kernel events {reloc_launches}",
           flush=True)
     assert reloc_err < 0.01 and at_pose_err < 0.01
 
@@ -2916,9 +3282,9 @@ def main() -> int:
         return d
 
     checkpoint.save_handler(str(work / "card.npz"), atan_snaps[CKPT_AT])
-    _reset_counts()
-    dt_card = track_on(resume(work / "card.npz", dev), dev)
-    ckpt_launches = _read_counts()
+    dt_card, ev = _raw_profile(
+        torch, lambda: track_on(resume(work / "card.npz", dev), dev))
+    ckpt_launches = {k_: ev[k_] for k_ in ("tile_gather", "sparse_align")}
     # the port's CPU handler, from the card's state CPU_FRAMES frames
     # before, tracks to CKPT_AT on the CPU and saves there
     cpu_h = handler_from_numpy(handler_to_numpy(
@@ -2991,27 +3357,33 @@ def main() -> int:
           f"{stages['seconds']:.1f} s, {graph['seconds']:.1f} s and "
           f"{kept['seconds']:.1f} s", flush=True)
 
+    # --- 27. FrameHandler's stages as CUDA graphs against eager -------------
+    phase(27)
+    handler_graphs = _handler_graph_phase(scene, cfgs, cam, imgs,
+                                          (img0, depth0))
+    print(f"# phase 27 took {handler_graphs['seconds']:.1f} s", flush=True)
+
     # --- 20. the lines (after phases 21-26) ----------------------------------
     phase(20)
     paths = {"slice_a": (launches_a, SLICE_A_FRAMES),
              "fast": (fast["launches"], fast["frames"]),
              "accurate": (accurate["launches"], accurate["frames"]),
-             "handler_fast": (handler["launches"], handler["frames"]),
+             "handler_fast": (handler["launches"], handler["launch_frames"]),
              "handler_accurate": (handler_acc["launches"],
-                                  handler_acc["frames"]),
+                                  handler_acc["launch_frames"]),
              "bootstrap_handler": (boot_launches, n_calls),
              "bootstrap_vo_step": (track_launches, GRAPH_PROFILED),
              "relocalization": (reloc_launches, 3),
              "handler_atan": (handler_atan["launches"],
-                              handler_atan["frames"]),
+                              handler_atan["launch_frames"]),
              "handler_omni": (handler_omni["launches"],
-                              handler_omni["frames"]),
+                              handler_omni["launch_frames"]),
              "driver_blender": (driver_blender["launches"],
-                                driver_blender["images"]),
+                                driver_blender["launch_frames"]),
              "driver_euroc": (driver_euroc["launches"],
-                              driver_euroc["images"]),
+                              driver_euroc["launch_frames"]),
              "checkpoint_atan": (ckpt_launches, CKPT_FRAMES),
-             "live": (live["launches"], live["frames"]),
+             "live": (live["launches"], live["launch_frames"]),
              "surface_align_padded": (surface["launches"]["align_padded"], 1),
              "surface_epipolar_align_1d":
                  (surface["launches"]["epipolar_align_1d"], 1),
@@ -3031,6 +3403,11 @@ def main() -> int:
     for p_ in ("fast", "accurate"):
         paths[f"{p_}_graphed_vo_scan"] = (kept[p_]["per_replayed_frame"], 1)
         paths[f"{p_}_graphed_vo_step"] = (kept[p_]["vo_step_call"], 1)
+    # phase 27: the handler's window, graphed and eager (profiler events)
+    for p_ in ("fast", "accurate"):
+        for w_ in ("graphed", "eager"):
+            paths[f"handler_{w_}_window_{p_}"] = (
+                handler_graphs[p_]["by_way"][w_], HG_WINDOW)
     # graphed batched steps: kernel events per replayed batched step,
     # whatever the streams
     paths.update({f"streams_vmapped_b{B}": (r["profiled_launches_per_step"],
@@ -3104,6 +3481,7 @@ def main() -> int:
                "checkpoint": ckpt, "live": live, "surface": surface,
                "streams": streams_b, "mesh": mesh, "donated": donated,
                "stages": stages, "graphed": graph, "kept": kept,
+               "handler_graphs": handler_graphs,
                "phase_start_s": phase_s,
                "seconds": time.perf_counter() - t_start}
     # the whole summary also as a file: the printed line outgrows the tail

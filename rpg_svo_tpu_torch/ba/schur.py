@@ -11,8 +11,11 @@ and back-substitutes the points.  Huber weights with information
 1/4^level; a step that raises the robust chi2 (or gives NaN) is rolled
 back with 8x damping.
 
-The JAX package sums per camera with one-hot matmuls at HIGHEST precision
-(TPU layout); here the sums are ``index_add`` in float32.  Its
+The per-camera sums are one-hot matmuls in float32, as the JAX package's
+at HIGHEST precision (deterministic, unlike ``index_add``'s atomics on
+the card); the per-point couplings ``Y`` are an ``index_add`` in which
+only the dropped rows of fixed cameras take more than one observation.
+Its
 ``while_loop`` with the chi2-plateau exit becomes ``n_iter`` masked
 iterations whose state freezes once the exit condition holds, so the
 solve reads nothing back to the host.
@@ -25,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core.map import mask_compact, set_rows
 from rpg_svo_tpu_torch.geometry.cameras import project2d
 from rpg_svo_tpu_torch.geometry.linalg import inv3x3
@@ -89,13 +93,16 @@ def variable_compaction(variable: torch.Tensor, n_var: int):
 
 def _per_camera(vals, vidx, n_var: int):
     """Sums of vals (P, M, ...) over the observations of each compact
-    variable camera: (n_var, ...); fixed cameras go to a dropped row."""
+    variable camera: (n_var, ...); fixed cameras (vidx = n_var) drop out.
+    A one-hot matmul, as in JAX: on the card ``index_add`` sums with
+    atomics in any order, so two runs of a solve (a graph's replay and
+    its eager body) would differ in the last bits and the tracks after
+    it drift apart."""
     tail = tuple(vals.shape[2:])
     flat = vals.reshape(-1, math.prod(tail))
-    out = torch.zeros((n_var + 1, flat.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    out = out.index_add(0, vidx.reshape(-1), flat)
-    return out[:n_var].reshape((n_var,) + tail)
+    onehot = (vidx.reshape(-1, 1) == torch.arange(
+        n_var, device=vals.device)).to(vals.dtype)
+    return (onehot.T @ flat).reshape((n_var,) + tail)
 
 
 def build_system(prob: BAProblem, R, t, p_w, huber_k, damping, vidx,
@@ -203,6 +210,7 @@ def _gn_step(prob, R, t, p_w, huber_k, damping, vsel, vok, vidx,
     return T_new.R, T_new.t, p_w + dx_p, chi2
 
 
+@graphed.jit(static_argnames=("n_iter", "n_var_max"))
 def solve_ba(prob: BAProblem, n_iter: int = 10, huber_width: float = 1.0,
              reproj_thresh_unitplane: float = 0.005,
              n_var_max: int = 0, reduce=_one_device) -> BAResult:

@@ -34,8 +34,9 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core.map import (
-    TYPE_CANDIDATE, MapState, SeedStore, alloc_points, free_slots,
+    TYPE_CANDIDATE, MapState, SeedStore, alloc_points, as_flag, free_slots,
     mask_compact, set_rows)
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.ops.detector import detect_features
@@ -147,7 +148,7 @@ def init_seeds_from_detection(m: MapState, kf_slot: torch.Tensor, det: dict,
     whole call, the keyframe counter included.  Only allocated rows are
     written, into the seed pool itself with ``inplace``."""
     dev = det["px"].device
-    enable = torch.as_tensor(enable, device=dev)
+    enable = as_flag(enable, dev)
     good = det["valid"] & (det["score"] > min_score) & enable
     n = good.shape[0]
     kf_counter = m.kf_counter + enable.to(I32)
@@ -188,6 +189,8 @@ def init_seeds_from_detection(m: MapState, kf_slot: torch.Tensor, det: dict,
     return m._replace(seed=seed, kf_counter=kf_counter)
 
 
+@graphed.jit(static_argnames=("cell_size", "min_score", "det_levels",
+                              "max_per_kf"))
 def init_seeds(m: MapState, kf_slot: torch.Tensor, pad, cam,
                occupied: torch.Tensor, depth_mean: torch.Tensor,
                depth_min: torch.Tensor, cell_size: int,
@@ -268,6 +271,9 @@ def apply_seed_update(m: MapState, upd: SeedFieldUpdate,
     return m._replace(seed=seed, pt=pt)
 
 
+@graphed.jit(static_argnames=("max_n_kfs", "conv_thresh", "max_steps",
+                              "update_k", "short_steps", "long_k",
+                              "max_level", "scan_rows"))
 def update_seeds(m: MapState, cur_pad, T_cur_w: SE3, cam,
                  max_n_kfs: int = 3, conv_thresh: float = 200.0,
                  max_steps: int = 256, update_k: int = 0,
@@ -313,7 +319,7 @@ def update_seeds_fields(m: MapState, cur_pad, T_cur_w: SE3, cam,
     seed = m.seed
     S = seed.active.shape[0]
     dev = seed.active.device
-    enable = torch.as_tensor(enable, device=dev)
+    enable = as_flag(enable, dev)
 
     too_old = (m.kf_counter - seed.batch_id) > max_n_kfs
     active = seed.active & ~too_old

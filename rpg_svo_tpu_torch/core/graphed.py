@@ -1,6 +1,9 @@
-"""The fused step's entries as CUDA graphs, captured once and replayed.
+"""The port's ``jax.jit``: CUDA graphs, captured once and replayed.
 
-Port-only: no file of ``rpg_svo_tpu/`` corresponds.  The JAX package jits
+Port-only: no file of ``rpg_svo_tpu/`` corresponds.  ``jit`` (at the end
+of this module) wraps every other function the JAX package passes to
+``jax.jit``: the stages ``FrameHandler`` calls one by one, the BA solves,
+the bootstrap's KLT and homography, the renderers.  The JAX package jits
 each entry of the step (``vo_step`` and its donated twin,
 ``rpg_svo_tpu/core/fused.py:461-464``; ``vo_scan`` as one ``lax.scan``,
 ``:513-524``; ``vmapped_vo_step``, ``rpg_svo_tpu/parallel/streams.py:
@@ -20,7 +23,10 @@ tables, the allocator and any NCCL communicator), then captures it under
 sync-debug ``"error"``: capture executes nothing, so the state is not
 advanced twice.  A replay copies the image into the graph's image buffer,
 launches the graph, and returns clones of its outputs.  A capture that
-fails raises: no entry falls back to the eager step on the card.
+fails raises: no entry falls back to the eager step on the card.  ``jit``
+captures the same way (``_capture_graph``).  A kernel launch recorded in
+a capture is counted at each replay of its graph (``replayed_launches``);
+the kernel's wrapper counts only the launches it makes itself.
 
 The entries that keep their input state (``vo_step``, ``vo_scan``,
 ``vmapped_vo_step``) receive a new state object every call.  ``run_kept``
@@ -40,7 +46,13 @@ frees its private memory pool, dropping a slot drops its graph.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+import inspect
+import threading
 import time
+import types
 from collections import OrderedDict
 from typing import Callable, NamedTuple
 
@@ -60,6 +72,7 @@ class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     img: torch.Tensor           # the image buffer the graph reads
     out: tuple                  # the outputs the graph writes (NamedTuple)
+    launches: dict              # kernel launches a replay makes, by kernel
     capture_s: float            # the capture alone, after the eager step
     pool_mb: float              # device memory the capture reserved
 
@@ -118,7 +131,7 @@ def run(step: Callable, static, state, img: torch.Tensor):
         return state, out
     _graphs.move_to_end(key)
     g.img.copy_(img)
-    g.graph.replay()
+    _replay_graph(g.graph, g.launches)
     return state, type(g.out)(*(t.clone() for t in g.out))
 
 
@@ -128,27 +141,9 @@ def _capture(step: Callable, state, img: torch.Tensor):
     with torch.cuda.device(dev):
         static_img = torch.empty(img.shape, dtype=img.dtype, device=dev)
         static_img.copy_(img)
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            _, out = step(state, static_img)
-        cur.wait_stream(side)
-        for t in out:
-            t.record_stream(cur)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            reserved = torch.cuda.memory_reserved()
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                _, static_out = step(state, static_img)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        pool_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
-        return out, _Graph(graph, static_img, static_out,
-                           time.perf_counter() - t0, pool_mb)
+    c = _capture_graph(step, (state, static_img), {}, dev)
+    return c.eager[1], _Graph(c.graph, static_img, c.out[1], c.launches,
+                              c.capture_s, c.pool_mb)
 
 
 def _copy_leaves(dst: list, src: list) -> None:
@@ -219,6 +214,411 @@ def slots() -> list:
 
 
 def clear() -> None:
-    """Drop every slot and every graph (and its memory pool)."""
+    """Drop every slot and every graph (and its memory pool), the stage
+    graphs of every ``jit`` function too."""
     _slots.clear()
     _graphs.clear()
+    for f in _jitted:
+        f.clear()
+    _buffers.clear()
+
+
+@contextlib.contextmanager
+def _sync_error():
+    """Sync-debug ``"error"``: a host sync raises (inside a capture)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+# ---------------------------------------------------------------------------
+# jit: the counterpart of jax.jit for functional functions
+#
+# A wrapped function called from host code on CUDA tensors is one replay of
+# a graph keyed by the function, its static arguments, every non-tensor leaf
+# of its other arguments, the shape, strides, dtype and device of every
+# tensor leaf and the ambient mesh.  A key owns input buffers: a call copies
+# the tensor leaves in (one ``_foreach_copy_`` per dtype), replays, and
+# returns copies of the outputs; an output that is one of the graph's own
+# input buffers (``m._replace(pt=...)`` leaves the other pools alone) is
+# returned as the caller's own tensor, as nothing on these paths writes a
+# tensor in place (a capture checks each input buffer's version counter
+# and raises where the body wrote one).  The first call for a key runs the body eagerly on a side
+# stream (to warm up the kernels, tables and allocator), captures it under
+# sync-debug "error" and replays it.  The body runs itself on the CPU, under
+# ``torch.func.vmap``, inside ``disable()`` and while a graph is being
+# traced (a capture, or the eager run before it), where JAX inlines a
+# nested jit.  A capture that fails raises.
+
+# stage graphs kept per function, least recently used first out: a handler
+# frame replays ~9 distinct stage graphs and a keyframe ~12, each function
+# with one or two signatures per camera and preset
+JIT_MAX = 8
+
+_local = threading.local()
+_call_lock = threading.Lock()
+
+
+def _flag(name: str) -> int:
+    return getattr(_local, name, 0)
+
+
+@contextlib.contextmanager
+def _counting(name: str):
+    setattr(_local, name, _flag(name) + 1)
+    try:
+        yield
+    finally:
+        setattr(_local, name, _flag(name) - 1)
+
+
+def _tracing():
+    """While a graph is being traced, wrapped functions run their body."""
+    return _counting("tracing")
+
+
+def disable():
+    """The counterpart of ``jax.disable_jit()``: inside it every ``jit``
+    function runs its body eagerly (the eager references of the card
+    checks)."""
+    return _counting("disabled")
+
+
+class _StageGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list                # the input buffers, one per tensor leaf
+    args: tuple                 # the arguments it was captured with, kept
+    #                             alive with any tensor their nodes hold
+    spec: object                # the outputs' tree structure
+    outs: list                  # per output leaf: ("copy", tensor),
+    #                             ("input", leaf index) or ("const", value)
+    launches: dict              # kernel launches a replay makes, by kernel
+    capture_s: float
+    in_mb: float                # the input buffers it reads (shared)
+    pool_mb: float              # device memory the capture reserved
+
+
+_SCALARS = (type(None), bool, int, str, torch.dtype, torch.device,
+            types.FunctionType)
+
+
+def _key_leaf(x):
+    """A non-tensor leaf as part of a key (floats by their bits, so that
+    -0.0 and NaN key as themselves; a dataclass, such as a renderer's
+    surface or a Config, by its fields); raises on anything else, which
+    could hide a tensor or not be hashable."""
+    if isinstance(x, float):
+        return (float, x.hex())
+    if isinstance(x, _SCALARS):
+        return (type(x), x)
+    if isinstance(x, functools.partial):        # local BA's mesh reduce
+        return (functools.partial, _key_leaf(x.func), _key_leaf(x.args),
+                tuple(sorted((k, _key_leaf(v))
+                             for k, v in x.keywords.items())))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x),) + tuple(
+            _key_leaf(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, tuple):
+        return (tuple,) + tuple(_key_leaf(v) for v in x)
+    raise TypeError(f"graphed.jit: an argument leaf of type "
+                    f"{type(x).__name__} is neither a tensor nor a value; "
+                    f"register its type as a pytree node or make the "
+                    f"argument static")
+
+
+def _static_key(x):
+    """A static argument as part of a key: a value as ``_key_leaf`` keys
+    it, else the object itself, which must be hashable (as JAX asks of a
+    static argument; a mesh, say)."""
+    if isinstance(x, torch.Tensor):
+        raise TypeError("graphed.jit: a tensor cannot be a static argument")
+    try:
+        return _key_leaf(x)
+    except TypeError:
+        hash(x)
+        return (type(x), x)
+
+
+# the input buffers, shared by every graph: the j-th leaf of a call with a
+# given (shape, strides, dtype, device) reads the j-th buffer of that
+# signature.  A call copies all its inputs in before its replay, and no
+# replay runs while another call's inputs are copied, so stages that take
+# the same map share one copy of it.
+_buffers: dict = {}
+
+
+def _shared_buffers(tensors: list) -> list:
+    seen: dict = {}
+    out = []
+    for x in tensors:
+        sig = (tuple(x.shape), x.stride(), x.dtype, x.device)
+        j = seen[sig] = seen.get(sig, -1) + 1
+        pool = _buffers.setdefault(sig, [])
+        if len(pool) <= j:
+            pool.append(torch.empty_like(x))
+        out.append(pool[j])
+    return out
+
+
+def buffer_mb() -> float:
+    """Device memory of the shared input buffers."""
+    return _mb(b for pool in _buffers.values() for b in pool)
+
+
+def _mb(ts) -> float:
+    return sum(t.numel() * t.element_size() for t in ts) / 1e6
+
+
+def _jit_on_card(tensors: list) -> bool:
+    """Whether a call on these tensor leaves replays a graph: on a card,
+    outside ``torch.func.vmap`` and outside a capture."""
+    return bool(tensors) and tensors[0].is_cuda \
+        and not is_batched(*tensors) \
+        and not torch.cuda.is_current_stream_capturing()
+
+
+class _Capture(NamedTuple):
+    eager: object               # the eager run's outputs
+    graph: "torch.cuda.CUDAGraph"
+    out: object                 # the outputs the graph writes
+    launches: dict              # kernel launches recorded, by kernel
+    capture_s: float            # the capture alone, after the eager run
+    pool_mb: float              # device memory the capture reserved
+
+
+def _capture_graph(fn: Callable, args, kwargs, dev: torch.device) -> _Capture:
+    """``fn(*args, **kwargs)`` run eagerly on a side stream (it warms the
+    kernels, the device tables, the allocator and any NCCL communicator),
+    then captured under sync-debug "error"."""
+    with torch.cuda.device(dev):
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), _tracing():
+            eager = fn(*args, **kwargs)
+        cur.wait_stream(side)
+        for t in pytree.tree_leaves(eager):
+            if isinstance(t, torch.Tensor):
+                t.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        launches: dict = {}
+        t0 = time.perf_counter()
+        # thread_local: another thread (an image prefetcher, a renderer
+        # feeding frames) may use the card meanwhile; the capturing thread
+        # is held to the capture's rules all the same
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            reserved = torch.cuda.memory_reserved()
+            with _sync_error(), _tracing(), _recording(launches):
+                out = fn(*args, **kwargs)
+        return _Capture(eager, graph, out, launches,
+                        time.perf_counter() - t0,
+                        (torch.cuda.memory_reserved() - reserved) / 1e6)
+
+
+# kernel launches made by graph replays, by kernel.  A kernel's wrapper
+# counts the launches it makes itself; one that it makes while a graph is
+# captured is recorded into that graph instead (``record_launch``), and
+# each replay of the graph adds what it recorded here.
+_replayed: dict = {}
+
+
+@contextlib.contextmanager
+def _recording(launches: dict):
+    prev = getattr(_local, "recording", None)
+    _local.recording = launches
+    try:
+        yield
+    finally:
+        _local.recording = prev
+
+
+def record_launch(kernel: str) -> None:
+    """A kernel's wrapper launched ``kernel`` into the stream being
+    captured: the graph captured here (if ``jit`` or ``run`` captures it)
+    launches it at each replay."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        rec[kernel] = rec.get(kernel, 0) + 1
+
+
+def _replay_graph(graph, launches: dict) -> None:
+    graph.replay()
+    for k, n in launches.items():
+        _replayed[k] = _replayed.get(k, 0) + n
+
+
+def replayed_launches() -> dict:
+    """Kernel launches made by graph replays since ``reset_jit_counts``,
+    by kernel."""
+    return dict(_replayed)
+
+
+class Jitted:
+    """A function wrapped by ``jit``; calling it calls the function (see
+    the module's notes for when that is a graph replay)."""
+
+    def __init__(self, fn: Callable, static_argnames=()):
+        if isinstance(static_argnames, str):
+            static_argnames = (static_argnames,)
+        self.fn = fn
+        self.static_argnames = tuple(static_argnames)
+        self.signature = inspect.signature(fn)
+        missing = [n for n in self.static_argnames
+                   if n not in self.signature.parameters]
+        if missing:
+            raise ValueError(f"graphed.jit({fn.__qualname__}): no "
+                             f"parameter {missing}")
+        functools.update_wrapper(self, fn)
+        self._graphs: "OrderedDict[tuple, _StageGraph]" = OrderedDict()
+        self.captures = self.replays = self.evictions = 0
+        self.in_copied_mb = self.out_copied_mb = 0.0
+        _jitted.append(self)
+
+    def _split(self, args, kwargs):
+        """(bound arguments, static items, tensor leaves, the structure
+        and the other leaves, a rebuild of (args, kwargs) around new
+        tensor leaves)."""
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arguments = bound.arguments
+        static = tuple((n, arguments[n]) for n in self.static_argnames)
+        leaves, spec = pytree.tree_flatten(
+            {n: v for n, v in arguments.items()
+             if n not in self.static_argnames})
+        pos = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+        rest = (spec, [(i, x) for i, x in enumerate(leaves)
+                       if not isinstance(x, torch.Tensor)])
+
+        def rebuild(tensors):
+            full = list(leaves)
+            for i, t in zip(pos, tensors):
+                full[i] = t
+            new = dict(pytree.tree_unflatten(full, spec), **dict(static))
+            b = inspect.BoundArguments(self.signature, OrderedDict(
+                (n, new[n]) for n in arguments))
+            return b.args, b.kwargs
+        return arguments, static, [leaves[i] for i in pos], rest, rebuild
+
+    def key(self, *args, **kwargs) -> tuple:
+        """The key of the graph a call with these arguments replays."""
+        _, static, tensors, rest, _ = self._split(args, kwargs)
+        return self._key(static, tensors, rest)
+
+    @staticmethod
+    def _key(static, tensors, rest) -> tuple:
+        spec, values = rest
+        return (tuple((n, _static_key(v)) for n, v in static),
+                spec, tuple((i, _key_leaf(x)) for i, x in values),
+                tuple((tuple(t.shape), t.stride(), t.dtype, t.device)
+                      for t in tensors), ambient_mesh())
+
+    def __call__(self, *args, **kwargs):
+        if _flag("disabled") or _flag("tracing"):
+            return self.fn(*args, **kwargs)
+        arguments, static, tensors, rest, rebuild = self._split(args, kwargs)
+        if not _jit_on_card(tensors):
+            return self.fn(*args, **kwargs)
+        if arguments.get("inplace"):
+            raise ValueError(f"{self.__qualname__}: an in-place call cannot "
+                             f"replay a functional graph")
+        # the input buffers are shared: one call at a time copies into them
+        # and replays (a thread feeding frames may call a renderer)
+        with _call_lock:
+            return self._replay(tensors, rebuild,
+                                self._key(static, tensors, rest))
+
+    def _replay(self, tensors: list, rebuild, key: tuple):
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(tensors, rebuild)
+            self.captures += 1
+            while len(self._graphs) > JIT_MAX:
+                self._graphs.popitem(last=False)
+                self.evictions += 1
+        else:
+            self._graphs.move_to_end(key)
+            _copy_leaves(g.inputs, tensors)
+        self.in_copied_mb += g.in_mb
+        _replay_graph(g.graph, g.launches)
+        self.replays += 1
+        out, fresh, srcs = [], [], []
+        for kind, v in g.outs:
+            if kind == "copy":
+                out.append(torch.empty_like(v))
+                fresh.append(out[-1])
+                srcs.append(v)
+            else:
+                out.append(tensors[v] if kind == "input" else v)
+        _copy_leaves(fresh, srcs)
+        self.out_copied_mb += _mb(fresh)
+        return pytree.tree_unflatten(out, g.spec)
+
+    def _capture(self, tensors: list, rebuild) -> _StageGraph:
+        """The graph of one key, its input buffers holding ``tensors``.
+        Raises if the body writes one of its inputs in place: a replay
+        would write the buffer, not the caller's tensor."""
+        bufs = _shared_buffers(tensors)
+        _copy_leaves(bufs, tensors)
+        args, kwargs = rebuild(bufs)
+        versions = [b._version for b in bufs]
+        c = _capture_graph(self.fn, args, kwargs, tensors[0].device)
+        written = [i for i, (b, v) in enumerate(zip(bufs, versions))
+                   if b._version != v]
+        if written:
+            raise ValueError(f"graphed.jit({self.__qualname__}): the body "
+                             f"writes its tensor arguments {written} (in "
+                             f"leaf order) in place; a functional graph "
+                             f"cannot")
+        leaves, spec = pytree.tree_flatten(c.out)
+        ids = {id(b): i for i, b in enumerate(bufs)}
+        outs = [("input", ids[id(x)]) if id(x) in ids
+                else ("copy", x) if isinstance(x, torch.Tensor)
+                else ("const", x) for x in leaves]
+        return _StageGraph(c.graph, bufs, (args, kwargs), spec, outs,
+                           c.launches, c.capture_s, _mb(bufs), c.pool_mb)
+
+    def clear(self) -> None:
+        """Drop this function's graphs (and their memory pools)."""
+        self._graphs.clear()
+
+    def stats(self) -> dict:
+        gs = list(self._graphs.values())
+        return dict(captures=self.captures, replays=self.replays,
+                    evictions=self.evictions, graphs=len(gs),
+                    in_copied_mb=self.in_copied_mb,
+                    out_copied_mb=self.out_copied_mb,
+                    in_mb=sum(g.in_mb for g in gs),
+                    pool_mb=sum(g.pool_mb for g in gs),
+                    capture_s=sum(g.capture_s for g in gs))
+
+
+_jitted: list = []
+
+
+def jit(fn: Callable | None = None, *, static_argnames=()):
+    """``jax.jit`` for the port: ``jit(f, static_argnames=(...))`` or
+    ``@jit(static_argnames=(...))``; the static names are the JAX
+    decorator's."""
+    if fn is None:
+        return functools.partial(jit, static_argnames=static_argnames)
+    return Jitted(fn, static_argnames)
+
+
+def jit_stats() -> dict:
+    """Per wrapped function (module.qualname): captures, replays,
+    evictions, MB copied in and out, and of the graphs kept their count,
+    the MB of the (shared) input buffers they read, pool MB and capture
+    seconds."""
+    return {f"{f.__module__}.{f.__qualname__}": f.stats() for f in _jitted}
+
+
+def reset_jit_counts() -> None:
+    """Zero every function's capture, replay, eviction and copy counts,
+    and the graph replays' kernel launches."""
+    _replayed.clear()
+    for f in _jitted:
+        f.captures = f.replays = f.evictions = 0
+        f.in_copied_mb = f.out_copied_mb = 0.0

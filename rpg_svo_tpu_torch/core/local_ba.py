@@ -21,6 +21,7 @@ import functools
 import torch
 
 from rpg_svo_tpu_torch.ba.schur import BAProblem, _apply_cams, solve_ba
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core.map import (
     TYPE_DELETED, TYPE_UNKNOWN, MapState, kf_positions,
     mask_compact_priority, set_rows)
@@ -106,6 +107,8 @@ def build_local_ba_problem(m: MapState, new_kf_slot: torch.Tensor,
     return prob, sel, selok, variable
 
 
+@graphed.jit(static_argnames=("n_iter", "core_n_kfs", "shard_axis",
+                              "max_core_points"))
 def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
                  huber_width_px: float, reproj_thresh_px: float, fx: float,
                  n_iter: int = 10, core_n_kfs: int = 3,
@@ -154,6 +157,7 @@ def run_local_ba(m: MapState, new_kf_slot: torch.Tensor,
     return m._replace(kf=kf, pt=pt)
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def run_two_view_ba(m: MapState, slot_fixed: torch.Tensor,
                     slot_var: torch.Tensor, huber_width: float,
                     reproj_thresh_px: float, fx: float,
@@ -183,6 +187,7 @@ def run_two_view_ba(m: MapState, slot_fixed: torch.Tensor,
                               pt.ptype)))
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def run_global_ba(m: MapState, huber_width_px: float, loba_thresh_px: float,
                   poseoptim_thresh_px: float, fx: float,
                   n_iter: int = 10) -> MapState:

@@ -112,6 +112,15 @@ class MapState(NamedTuple):
     kf_counter: torch.Tensor    # int32 scalar
 
 
+def as_flag(enable, device) -> torch.Tensor:
+    """A 0-d bool tensor of ``enable`` (a bool or such a tensor), made on
+    the device by a fill, not copied from host memory (a copy a CUDA
+    graph's capture refuses)."""
+    if isinstance(enable, torch.Tensor):
+        return enable.to(device)
+    return torch.full((), bool(enable), dtype=torch.bool, device=device)
+
+
 def _tile_rows(v, n: int, dev) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=dev).repeat(n, 1)
 
@@ -359,7 +368,7 @@ def add_keyframe(m: MapState, stack: torch.Tensor, T_f_w: SE3,
     if feat_tile is None:
         feat_tile, feat_tile_xy0 = empty_tiles(F, dev)
     slot = free_slots(kf.active[:-1], 1)[0]
-    slot = torch.where(torch.as_tensor(enable, device=dev), slot,
+    slot = torch.where(as_flag(enable, dev), slot,
                        torch.full_like(slot, -1))
     ok = slot >= 0
     sw = torch.clamp(slot, min=0).to(torch.int64).reshape(1)

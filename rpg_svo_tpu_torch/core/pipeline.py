@@ -29,6 +29,7 @@ import torch
 from rpg_svo_tpu_torch import resolve_device
 from rpg_svo_tpu_torch.config import Config
 from rpg_svo_tpu_torch.core import depth_filter as df
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core import initialization as init_mod
 from rpg_svo_tpu_torch.core import map as svomap
 from rpg_svo_tpu_torch.core.frame import (
@@ -96,6 +97,20 @@ def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1).to(torch.int64))[0]
 
 
+@graphed.jit(static_argnames=("n_opt", "n_iter"))
+def _structure_opt(m: MapState, T_f_w: SE3, frame_id: torch.Tensor,
+                   feat_point: torch.Tensor, feat_valid: torch.Tensor,
+                   n_opt: int, n_iter: int) -> MapState:
+    """optimizeStructure (frame_handler_base.cpp:178-196): refine the
+    n_opt longest-unoptimized points observed in this frame.  Takes the
+    frame's pose and feature table, not the frame, whose host timestamp
+    would key a new graph every frame."""
+    return _structure_opt_fused(
+        m, T_f_w, frame_id, feat_point, feat_valid, n_opt, n_iter,
+        torch.ones((), dtype=torch.bool, device=feat_valid.device))
+
+
+@graphed.jit
 def _kf_policy(m: MapState, T_cur: SE3, cam, depth_mean: torch.Tensor,
                kfselect_mindist: float):
     """needNewKf (frame_handler_mono.cpp:304-315): a new keyframe unless
@@ -423,11 +438,10 @@ class FrameHandler:
 
         timer = self._timer
         timer.skip()
-        self.map = _structure_opt_fused(
+        self.map = _structure_opt(
             self.map, frame.T_f_w, frame.frame_id, frame.feat_point,
             frame.feat_valid, cfg.structureoptim_max_pts,
-            cfg.structureoptim_num_iter, torch.ones((), dtype=torch.bool,
-                                                    device=dev))
+            cfg.structureoptim_num_iter)
         timer.mark("point_optimizer")
 
         self._set_quality(n_edges)

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core.map import (
     TYPE_CANDIDATE, TYPE_DELETED, TYPE_GOOD, TYPE_UNKNOWN, MapState,
     kf_positions, mask_compact)
@@ -54,6 +55,7 @@ def _cell_perm(C: int, device: str) -> torch.Tensor:
     return torch.from_numpy(perm).to(device)
 
 
+@graphed.jit
 def project_points(pt, T_cur: SE3, cam):
     p_cur = T_cur.apply(pt.pos)
     px = cam.world2cam(p_cur)
@@ -62,6 +64,7 @@ def project_points(pt, T_cur: SE3, cam):
     return px, vis0
 
 
+@graphed.jit
 def candidate_bookkeeping(pt, vis0):
     cand_miss = pt.active & (pt.ptype == TYPE_CANDIDATE) & ~vis0
     n_fail = pt.n_fail + torch.where(cand_miss, 3, 0).to(torch.int32)
@@ -70,6 +73,8 @@ def candidate_bookkeeping(pt, vis0):
     return n_fail, ptype, vis0 & (ptype != TYPE_DELETED)
 
 
+@graphed.jit(static_argnames=("grid_size", "ncx", "ncy", "max_fts",
+                              "attempt_factor"))
 def grid_select(px, visible, ptype, grid_size: int, ncx: int, ncy: int,
                 max_fts: int, attempt_factor: float = 2.0):
     """Per-cell best point by quality, then the attempt budget.  Returns
@@ -102,6 +107,7 @@ def grid_select(px, visible, ptype, grid_size: int, ncx: int, ncy: int,
     return has, sel_pt
 
 
+@graphed.jit(static_argnames=("max_level", "max_fts"))
 def match_cells(m: MapState, T_cur: SE3, cam, n_fail, ptype, has, sel_pt,
                 max_level: int, cur_pad, max_fts: int, inplace: bool = False):
     """Closest-view reference observation, batched direct matching and the
@@ -212,6 +218,8 @@ def match_cells(m: MapState, T_cur: SE3, cam, n_fail, ptype, has, sel_pt,
         n_matches=torch.sum(success).to(torch.int32), n_trials=n_trials)
 
 
+@graphed.jit(static_argnames=("grid_size", "ncx", "ncy", "max_level",
+                              "max_fts", "attempt_factor"))
 def reproject_map(m: MapState, T_cur: SE3, cam, grid_size: int, ncx: int,
                   ncy: int, max_level: int = 4, cur_pad=None,
                   max_fts: int = 0, attempt_factor: float = 2.0,

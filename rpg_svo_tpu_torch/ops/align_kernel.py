@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from rpg_svo_tpu_torch import is_batched
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.cameras import (
     PinholeCamera, PinholeCameraIdeal)
 from rpg_svo_tpu_torch.geometry.se3 import SE3
@@ -87,8 +88,9 @@ _K2_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, LevelTable,
 
 
 class _SparseAlign:
-    """K2 launcher; ``launches`` counts kernel launches (nothing else: not
-    a call recorded into a CUDA graph, nor a graph's replays)."""
+    """K2 launcher; ``launches`` counts the kernel launches it makes.  A
+    call recorded into a CUDA graph launches nothing: it is handed to
+    ``core/graphed.record_launch``, and the graph's replays count it."""
 
     def __init__(self):
         self.launches = 0
@@ -145,7 +147,9 @@ class _SparseAlign:
                  int(min_level), int(n_iter), float(eps), N, out.data_ptr(),
                  cuda_build.raw_stream(dev))
         cuda_build.check(err, "sparse_align")
-        if not torch.cuda.is_current_stream_capturing():
+        if torch.cuda.is_current_stream_capturing():
+            graphed.record_launch("sparse_align")
+        else:
             self.launches += 1
         return _unpack(out)
 
@@ -196,7 +200,9 @@ class _SparseAlign:
                  int(n_iter), float(eps), N, out.data_ptr(), outi.data_ptr(),
                  ss, B, cuda_build.raw_stream(dev))
         cuda_build.check(err, "sparse_align_batched")
-        if not torch.cuda.is_current_stream_capturing():
+        if torch.cuda.is_current_stream_capturing():
+            graphed.record_launch("sparse_align")
+        else:
             self.launches += 1
         return out, outi
 

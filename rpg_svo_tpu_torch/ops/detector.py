@@ -19,6 +19,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from rpg_svo_tpu_torch.core import graphed
+
 # Bresenham circle of radius 3, (dx, dy), clockwise from 12 o'clock.
 FAST_OFFSETS = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -102,6 +104,7 @@ def cell_index(px: torch.Tensor, cell_size: int, ncx: int,
     return cy * ncx + cx
 
 
+@graphed.jit(static_argnames=("cell_size", "threshold", "arc_length"))
 def detect_features(pyramid: Sequence[torch.Tensor], occupied: torch.Tensor,
                     cell_size: int, threshold: float = 20.0,
                     arc_length: int = 10):

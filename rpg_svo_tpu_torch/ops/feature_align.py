@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.linalg import inv2x2, inv3x3
 from rpg_svo_tpu_torch.ops.interp import FlatPyramid, bilinear, patch_grid
 from rpg_svo_tpu_torch.ops.patches import catmull_rom_weights
@@ -123,6 +124,7 @@ def _border_gradients(patch_b: torch.Tensor):
     return inner.reshape(-1, n), dx.reshape(-1, n), dy.reshape(-1, n)
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def align_features(cur_img, ref_patch_border: torch.Tensor,
                    px_init: torch.Tensor, valid: torch.Tensor,
                    n_iter: int = 10, level: torch.Tensor | None = None,
@@ -182,6 +184,7 @@ def align_features(cur_img, ref_patch_border: torch.Tensor,
     return uvm[:, :2], conv & valid
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def align2d(cur_img, ref_patch_border: torch.Tensor, px_init: torch.Tensor,
             valid: torch.Tensor, n_iter: int = 10,
             level: torch.Tensor | None = None):
@@ -190,6 +193,7 @@ def align2d(cur_img, ref_patch_border: torch.Tensor, px_init: torch.Tensor,
                           level)
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def align1d(cur_img, ref_patch_border: torch.Tensor, px_init: torch.Tensor,
             direction: torch.Tensor, valid: torch.Tensor, n_iter: int = 10,
             level: torch.Tensor | None = None):

@@ -8,6 +8,13 @@ hypotheses in one (S, N) pass, the best consensus set is refitted, and the
 refit homography is decomposed into 8 (R, t) hypotheses scored by positive
 triangulated depths.
 
+The eigenvector and the SVD come from fixed numbers of Jacobi rotations
+(``_jacobi_eigh``, ``_svd3``) in torch ops, not from the linear-algebra
+libraries: ``torch.linalg.eigh`` and ``svd`` read their convergence info
+back to the host (and may run host-side in MAGMA), which a CUDA graph
+cannot hold.  Jacobi's eigenvectors are as accurate as LAPACK's (to about
+eps / gap).
+
 The minimal samples come from ``ransac_draw``, a function of their own
 drawing from an explicit ``torch.Generator`` (the JAX package draws with
 ``jax.random.categorical``, whose stream torch cannot reproduce).  The
@@ -22,8 +29,106 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.geometry.triangulation import depth_from_triangulation
+
+
+# Jacobi sweeps: each sweep rotates every (p, q) pair once and the
+# off-diagonal mass falls quadratically; 6 sweeps of the 9x9 normal
+# matrices and 8 of the 3x3 homographies leave float32 noise
+JACOBI_SWEEPS_9 = 6
+JACOBI_SWEEPS_3 = 8
+
+
+def _rotation(c: torch.Tensor, s: torch.Tensor, p: int, q: int, n: int):
+    """(..., n, n) Jacobi rotations: the identity but for c at (p, p) and
+    (q, q), s at (p, q) and -s at (q, p)."""
+    eye = torch.eye(n, dtype=c.dtype, device=c.device)
+    pq = eye[p][:, None] * eye[q][None, :]
+    diag = eye[p][:, None] * eye[p][None, :] + eye[q][:, None] * eye[q][None, :]
+    return eye + (c - 1.0)[..., None, None] * diag \
+        + s[..., None, None] * (pq - pq.transpose(0, 1))
+
+
+def _tangent(zeta: torch.Tensor, zero: torch.Tensor):
+    """(c, s) of the rotation whose tangent is the smaller root of
+    t^2 + 2 zeta t - 1 = 0; the identity where ``zero`` (nothing to
+    rotate)."""
+    z = torch.where(zero, torch.ones_like(zeta), zeta)
+    t = torch.sign(z) / (torch.abs(z) + torch.sqrt(1.0 + z * z))
+    t = torch.where(zero, torch.zeros_like(t), t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return c, t * c
+
+
+def _round_robin(n: int):
+    """The pairs of n indices in rounds of disjoint pairs (the circle
+    method): every pair once."""
+    m = n + n % 2
+    rounds = []
+    for r in range(m - 1):
+        pairs = [(r, m - 1)] + [((r + k) % (m - 1), (r - k) % (m - 1))
+                                for k in range(1, m // 2)]
+        rounds.append([(p, q) for p, q in pairs if max(p, q) < n])
+    return rounds
+
+
+def _jacobi_eigh(M: torch.Tensor, sweeps: int):
+    """Eigenvalues (..., n) (unordered) and eigenvectors (columns of (...,
+    n, n)) of symmetric ``M`` by two-sided Jacobi rotations, each round
+    rotating disjoint pairs at once."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    outer = lambda a, b: eye[a][:, None] * eye[b][None, :]  # noqa: E731
+    # per round, stacked over its pairs: selectors of a_pp, a_qq, a_pq and
+    # the rotations' diagonal and skew parts
+    sel = []
+    for pairs in _round_robin(n):
+        st = lambda f: torch.stack([f(p, q) for p, q in pairs])  # noqa: E731
+        sel.append((st(lambda p, q: outer(p, p)), st(lambda p, q: outer(q, q)),
+                    st(lambda p, q: outer(p, q)),
+                    st(lambda p, q: outer(p, p) + outer(q, q)),
+                    st(lambda p, q: outer(p, q) - outer(q, p))))
+    A = M
+    V = eye.expand(M.shape)
+    for _ in range(sweeps):
+        for spp, sqq, spq, diag, skew in sel:
+            app, aqq, apq = (torch.einsum("...ij,kij->...k", A, x)
+                             for x in (spp, sqq, spq))
+            c, s = _tangent((aqq - app) / (2.0 * apq), apq == 0.0)
+            G = eye + torch.einsum("...k,kij->...ij", c - 1.0, diag) \
+                + torch.einsum("...k,kij->...ij", s, skew)
+            A = G.transpose(-1, -2) @ A @ G
+            V = V @ G
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
+
+
+def _svd3(H: torch.Tensor, sweeps: int = JACOBI_SWEEPS_3):
+    """(U, S descending, Vt) of a (3, 3) matrix by one-sided Jacobi: the
+    columns of H V are rotated orthogonal, their norms are S."""
+    A = H
+    V = torch.eye(3, dtype=H.dtype, device=H.device)
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            a, b = A[:, p], A[:, q]
+            gamma = torch.sum(a * b)
+            c, s = _tangent((torch.sum(b * b) - torch.sum(a * a))
+                            / (2.0 * gamma), gamma == 0.0)
+            G = _rotation(c, s, p, q, 3)
+            A = A @ G
+            V = V @ G
+    S = torch.linalg.vector_norm(A, dim=0)
+    order = torch.argsort(S, descending=True)
+    S = S[order]
+    U = A[:, order] / torch.clamp(S, min=1e-30)[None, :]
+    return U, S, V[:, order].transpose(0, 1)
+
+
+def _det3(A: torch.Tensor) -> torch.Tensor:
+    return (A[0, 0] * (A[1, 1] * A[2, 2] - A[1, 2] * A[2, 1])
+            - A[0, 1] * (A[1, 0] * A[2, 2] - A[1, 2] * A[2, 0])
+            + A[0, 2] * (A[1, 0] * A[2, 1] - A[1, 1] * A[2, 0]))
 
 
 def _dlt_rows(uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:
@@ -48,9 +153,11 @@ def _solve_h(uv1: torch.Tensor, uv2: torch.Tensor,
     if w is not None:
         A = A * torch.repeat_interleave(w, 2, dim=-1)[..., None]
     M = A.transpose(-1, -2) @ A
-    # eigenvalues ascend: the first eigenvector spans the null space
-    h = torch.linalg.eigh(M)[1][..., 0]
-    H = h.reshape(h.shape[:-1] + (3, 3))
+    # the eigenvector of the smallest eigenvalue spans the null space
+    w, V = _jacobi_eigh(M, JACOBI_SWEEPS_9)
+    k = torch.argmin(w, dim=-1)
+    h = torch.gather(V, -1, k[..., None, None].expand(V.shape[:-1] + (1,)))
+    H = h[..., 0].reshape(h.shape[:-2] + (3, 3))
     return H / torch.linalg.vector_norm(H, dim=(-2, -1), keepdim=True)
 
 
@@ -90,6 +197,7 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
+@graphed.jit
 def estimate_homography(uv_ref: torch.Tensor, uv_cur: torch.Tensor,
                         valid: torch.Tensor, idx: torch.Tensor,
                         thresh: float) -> HomographyResult:
@@ -120,9 +228,9 @@ def decompose_homography(H: torch.Tensor, f_ref: torch.Tensor,
     inliers).  float32 throughout, as in JAX: a float64 SVD would change
     the winner on near-ties."""
     dev = H.device
-    U, S, Vt = torch.linalg.svd(H)
+    U, S, Vt = _svd3(H)
     d1, d2, d3 = S[0], S[1], S[2]
-    s = torch.linalg.det(U) * torch.linalg.det(Vt)
+    s = _det3(U) * _det3(Vt)
     safe = torch.clamp(d2, min=1e-12)
     d1n, d3n = d1 / safe, d3 / safe
     denom = torch.clamp(d1n * d1n - d3n * d3n, min=1e-12)

@@ -15,6 +15,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 
 def _bilinear_flat(flat, base, S, W, H, xy, fill):
@@ -38,7 +39,9 @@ def bilinear(img: torch.Tensor, xy: torch.Tensor, fill: float = 0.0):
     (values, valid) where valid marks a fully inside 4-pixel support."""
     H, W = img.shape
     dev = img.device
-    t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa: E731
+    # sizes by a fill on the device (a copy from host memory is what a
+    # CUDA graph's capture refuses)
+    t = lambda v: torch.full((), v, dtype=torch.int64, device=dev)  # noqa: E731
     return _bilinear_flat(img.reshape(-1), 0, W, t(W), t(H), xy, fill)
 
 
@@ -151,6 +154,27 @@ class BoundPyramidPool:
         k = k.reshape(k.shape + (1,) * (xy.dim() - k.dim() - 1))
         return _bilinear_flat(self.pool.reshape(-1),
                               k * self.pool.shape[1] + off, W, W, H, xy, fill)
+
+
+# pytree nodes, so that a jitted stage (core/graphed.jit) takes their
+# tensors as inputs; the level shapes are static
+pytree.register_pytree_node(
+    FlatPyramid, lambda p: ([p.flat, p.table], p.shapes),
+    lambda leaves, shapes: FlatPyramid(leaves[0], leaves[1], shapes),
+    serialized_type_name="rpg_svo_tpu_torch.ops.interp.FlatPyramid")
+
+
+def _bound_pool(leaves, shapes) -> BoundPyramidPool:
+    p = BoundPyramidPool.__new__(BoundPyramidPool)
+    p.pool, p.table, p.idx = leaves
+    p.shapes = shapes
+    return p
+
+
+pytree.register_pytree_node(
+    BoundPyramidPool, lambda p: ([p.pool, p.table, p.idx], p.shapes),
+    _bound_pool,
+    serialized_type_name="rpg_svo_tpu_torch.ops.interp.BoundPyramidPool")
 
 
 def image_gradients(img: torch.Tensor):

@@ -15,9 +15,12 @@ from typing import Tuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
+from rpg_svo_tpu_torch.geometry.linalg import inv3x3
 from rpg_svo_tpu_torch.ops.interp import bilinear
 
 
+@graphed.jit(static_argnames=("halfwin", "n_iter", "max_level"))
 def track_klt(ref_pyr: Tuple[torch.Tensor, ...],
               cur_pyr: Tuple[torch.Tensor, ...],
               px_ref: torch.Tensor, valid: torch.Tensor, halfwin: int = 15,
@@ -32,9 +35,8 @@ def track_klt(ref_pyr: Tuple[torch.Tensor, ...],
     grid = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)   # (W2, 2)
     W2 = grid.shape[0]
     N = px_ref.shape[0]
-    ex = torch.tensor([1.0, 0.0], device=dev)
-    ey = torch.tensor([0.0, 1.0], device=dev)
     eye3 = torch.eye(3, device=dev)
+    ex, ey = eye3[0, :2], eye3[1, :2]
 
     flow = torch.zeros_like(px_ref)          # in level-0 pixels
     conv = torch.zeros_like(valid)
@@ -54,8 +56,9 @@ def track_klt(ref_pyr: Tuple[torch.Tensor, ...],
         J = torch.stack([dx, dy, torch.ones_like(dx)], dim=-1)  # (N, W2, 3)
         Jm = J * m_ref[..., None]
         H = torch.einsum("npj,npk->njk", Jm, J)
-        # inv_ex checks nothing on the host (inv would read back its info)
-        Hinv = torch.linalg.inv_ex(H + 1e-4 * eye3)[0]
+        # closed form: a batched library inverse may run host-side
+        # (MAGMA) or read back its info, which a CUDA graph cannot hold
+        Hinv = inv3x3(H + 1e-4 * eye3)
         n_ref = torch.sum(m_ref, dim=-1)
         lvl_ok = valid & (n_ref > 0.25 * W2)
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core.map import mask_compact, set_rows
 from rpg_svo_tpu_torch.geometry.cameras import project2d
 from rpg_svo_tpu_torch.geometry.linalg import det2x2, inv2x2
@@ -349,6 +350,9 @@ def epipolar_search(cur_pad, cam, geom: EpipolarGeom, T_cur_ref: SE3, f_ref,
     return EpipolarMatch(px0, d_ref, search_level, success, scanned)
 
 
+@graphed.jit(static_argnames=("max_steps", "n_iter", "max_level",
+                                 "align_1d", "short_steps", "long_k",
+                                 "scan_rows"))
 def epipolar_match(cur_pad, ref_pad, cam, T_cur_ref: SE3, px_ref, f_ref,
                    level_ref, d_estimate, d_min, d_max, valid,
                    max_steps: int = DEFAULT_MAX_STEPS, n_iter: int = 10,
@@ -381,6 +385,7 @@ class DirectMatch(NamedTuple):
     grad_cur: torch.Tensor    # (N, 2) warped unit gradient dir
 
 
+@graphed.jit(static_argnames=("n_iter", "max_level"))
 def find_match_direct(cur_pyr, ref_pyr, cam, T_cur_ref: SE3, px_ref, f_ref,
                       level_ref, depth_ref, px_cur_init, valid,
                       n_iter: int = 10, max_level: int = 4, ftr_type=None,

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.cameras import project2d
 from rpg_svo_tpu_torch.geometry.linalg import solve3x3
 
@@ -41,6 +42,7 @@ def _point_system(p_w, obs_R, obs_t, obs_f, obs_mask):
     return A, b, chi2
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def optimize_points(p_w, obs_R, obs_t, obs_f, obs_mask, point_valid,
                     n_iter: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (optimized p_w (K, 3), final chi2 (K,))."""

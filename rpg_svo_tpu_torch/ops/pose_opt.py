@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.cameras import project2d
 from rpg_svo_tpu_torch.geometry.linalg import solve6x6_spd
 from rpg_svo_tpu_torch.geometry.se3 import SE3
@@ -39,6 +40,7 @@ def _residuals(T: SE3, p_w, f_meas, sqrt_inv_cov, valid):
     return torch.where(valid[:, None], e, torch.zeros_like(e)), p_cam
 
 
+@graphed.jit(static_argnames=("n_iter",))
 def optimize_pose(T_init: SE3, p_w, f_meas, level, valid, fx: float,
                   reproj_thresh: float = 2.0,
                   n_iter: int = 10) -> PoseOptResult:

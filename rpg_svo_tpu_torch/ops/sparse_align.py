@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from rpg_svo_tpu_torch import is_batched
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.linalg import solve6x6_spd
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.geometry.triangulation import jacobian_xyz2uv
@@ -234,6 +235,8 @@ def sparse_img_align_plain(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
     return AlignResult(T, n_tracked, H, chi2, iters)
 
 
+@graphed.jit(static_argnames=("max_level", "min_level", "n_iter", "eps",
+                                 "robust"))
 def sparse_img_align(ref_pad, cur_pad, cam, T_cur_ref_init: SE3,
                      feats_px, feats_f, feats_depth, feats_valid,
                      max_level: int = 4, min_level: int = 2,
@@ -290,6 +293,7 @@ def _gather_tile_raw(img: torch.Tensor, uv0: torch.Tensor):
     return base.to(torch.float32), vals, ok
 
 
+@graphed.jit(static_argnames=("max_level", "min_level", "n_iter", "eps"))
 def sparse_img_align_raw(ref_pyr, cur_pyr, cam, T_cur_ref_init: SE3,
                          feats_px, feats_f, feats_depth, feats_valid,
                          max_level: int = 4, min_level: int = 2,

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch import is_batched
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.ops import cuda_build
 
 TAIL_ROWS = 40
@@ -168,8 +169,9 @@ _K1B_ARGTYPES = (ctypes.c_void_p, _LL, ctypes.c_int, LevelTable,
 
 
 class _TileGather:
-    """K1 launcher; ``launches`` counts kernel launches (nothing else: not
-    a call recorded into a CUDA graph, nor a graph's replays)."""
+    """K1 launcher; ``launches`` counts the kernel launches it makes.  A
+    call recorded into a CUDA graph launches nothing: it is handed to
+    ``core/graphed.record_launch``, and the graph's replays count it."""
 
     def __init__(self):
         self.launches = 0
@@ -206,7 +208,9 @@ class _TileGather:
                  org.data_ptr(), n, int(tile_h), int(tile_w),
                  cuda_build.raw_stream(stack.device))
         cuda_build.check(err, "tile_gather")
-        if not torch.cuda.is_current_stream_capturing():
+        if torch.cuda.is_current_stream_capturing():
+            graphed.record_launch("tile_gather")
+        else:
             self.launches += 1
         return out, org[0], org[1]
 
@@ -247,7 +251,9 @@ class _TileGather:
                  n, int(tile_h), int(tile_w), B,
                  cuda_build.raw_stream(stack.device))
         cuda_build.check(err, "tile_gather_batched")
-        if not torch.cuda.is_current_stream_capturing():
+        if torch.cuda.is_current_stream_capturing():
+            graphed.record_launch("tile_gather")
+        else:
             self.launches += 1
         return out, org
 

@@ -21,10 +21,12 @@ import torch
 from rpg_svo_tpu_torch.ba.schur import (
     BAProblem, _chi2, assemble_solve, build_system, expand_dx,
     point_backsub, variable_compaction)
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 from rpg_svo_tpu_torch.parallel.gspmd import psum, use_mesh
 
 
+@graphed.jit(static_argnames=("mesh", "n_iter", "axis", "n_var_max"))
 def distributed_ba_solve(mesh, prob: BAProblem, n_iter: int = 10,
                          huber_width: float = 0.01, axis="sp",
                          n_var_max: int = 0):

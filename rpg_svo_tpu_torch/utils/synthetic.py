@@ -19,8 +19,10 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch import resolve_device
+from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.geometry.cameras import PinholeCamera
 from rpg_svo_tpu_torch.geometry.se3 import SE3
 
@@ -62,14 +64,29 @@ class Texture:
         return Texture.make(seed=seed, n_waves=n_waves, min_freq=30.0,
                             max_freq=500.0, flat_spectrum=True)
 
+    def on(self, device) -> "Texture":
+        """The texture with float32 tensors on ``device`` (a renderer's
+        graph reads them as inputs)."""
+        return Texture(*(torch.as_tensor(np.asarray(a, np.float32),
+                                         device=device)
+                         for a in (self.amp, self.freq, self.phase)))
+
     def eval(self, xy: torch.Tensor) -> torch.Tensor:
         """xy (..., 2) world coords -> intensity (...) in [0, 255]."""
-        f32 = lambda a: torch.as_tensor(  # noqa: E731
-            np.asarray(a, np.float32), device=xy.device)
-        amp, freq, phase = f32(self.amp), f32(self.freq), f32(self.phase)
+        amp, freq, phase = (
+            a if isinstance(a, torch.Tensor) else torch.as_tensor(
+                np.asarray(a, np.float32), device=xy.device)
+            for a in (self.amp, self.freq, self.phase))
         arg = xy[..., None, 0] * freq[:, 0] + xy[..., None, 1] * freq[:, 1]
         val = torch.sum(amp * torch.sin(arg + phase), dim=-1)
         return torch.clamp(127.5 + val, 0.0, 255.0)
+
+
+# a pytree node, so that a texture of tensors is a renderer graph's input
+pytree.register_pytree_node(
+    Texture, lambda t: ([t.amp, t.freq, t.phase], None),
+    lambda leaves, _: Texture(*leaves),
+    serialized_type_name="rpg_svo_tpu_torch.utils.synthetic.Texture")
 
 
 def look_down_pose(x: float, y: float, z: float, yaw: float = 0.0,
@@ -189,6 +206,13 @@ def render_surface_frame(cam, tex: Texture, surf: SineSurface, T_w_c: SE3,
     return img, depth
 
 
+# the datasets' renderers, jitted as the JAX package jits its datasets'
+# closures over the camera, texture and shape (rpg_svo_tpu/utils/
+# synthetic.py:253, 281): here the texture is an input (``Texture.on``)
+_render_surface = graphed.jit(render_surface_frame)
+_render_plane = graphed.jit(render_frame)
+
+
 class SurfaceDataset:
     """Rendered sequence over the sinusoidal surface with ground truth:
     752x480 frames through the reference test camera, ~2 m above the
@@ -205,6 +229,7 @@ class SurfaceDataset:
         self.cam = reference_test_camera(shape[1], shape[0])
         self.tex = tex if tex is not None else Texture.make_fine(seed=seed)
         self.surf = surf if surf is not None else SineSurface()
+        self._tex = self.tex.on(self.device)
         self.shape = shape
         self.poses = [
             look_down_pose(0.1131 + step * i, 0.1131 + step * 0.97 * i,
@@ -218,8 +243,8 @@ class SurfaceDataset:
 
     def frame(self, i: int):
         """Returns (img, depth, T_w_c)."""
-        img, depth = render_surface_frame(self.cam, self.tex, self.surf,
-                                          self.poses[i], self.shape)
+        img, depth = _render_surface(self.cam, self._tex, self.surf,
+                                     self.poses[i], self.shape)
         return img, depth, self.poses[i]
 
 
@@ -234,6 +259,7 @@ class SyntheticDataset:
         self.device = resolve_device(device)
         self.cam = reference_test_camera(shape[1], shape[0])
         self.tex = tex if tex is not None else Texture.make(seed=seed)
+        self._tex = self.tex.on(self.device)
         self.shape = shape
         if trajectory == "circle":
             self.poses = circle_trajectory(n_frames, device=self.device,
@@ -249,6 +275,6 @@ class SyntheticDataset:
 
     def frame(self, i: int):
         """Returns (img, depth, T_w_c)."""
-        img, depth = render_frame(self.cam, self.tex, self.poses[i],
-                                  self.shape)
+        img, depth = _render_plane(self.cam, self._tex, self.poses[i],
+                                   self.shape)
         return img, depth, self.poses[i]

@@ -22,7 +22,17 @@ by the profiler's kernel events, which see a graph's replays.  The
 entries that keep their input on the same frames: graphed ``vo_step``
 against the eager body (input untouched, a clone finds the same slot),
 and graphed ``vmapped_vo_step`` at B = 4 against the eager batched step.
+FrameHandler's jitted stages (``graphed.jit``): each stage's replay
+against its body under ``graphed.disable()`` on the arguments of a
+handler keyframe frame (bit-equal but for local BA's atomic sums), no
+capture for new values of a signature, the caller's inputs untouched, a
+returned tensor the caller's own, a host sync or an in-place write of an
+input in a body refused at capture, and the graphed handler against the
+eager one over frames 81-100 (K1 and K2 as counted, graph replays
+included, and as the profiler saw them).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -96,11 +106,13 @@ def _assert_twin(Tk, nk, ik, rp):
 
 
 def _eager(state, img, cam, cfg, ncx, ncy):
-    """The step's eager body, out of place (every op from Python): the
-    reference of the graphed entries, and a card path whose launches the
-    wrappers count."""
-    return fused._vo_step(state, img, cam, cfg, ncx, ncy, SHAPE,
-                          inplace=False)
+    """The step's eager body, out of place (every op from Python, its
+    jitted stages too: ``graphed.disable()``): the reference of the
+    graphed entries, and a card path whose launches the wrappers count."""
+    from rpg_svo_tpu_torch.core import graphed
+    with graphed.disable():
+        return fused._vo_step(state, img, cam, cfg, ncx, ncy, SHAPE,
+                              inplace=False)
 
 
 @pytest.mark.cuda
@@ -537,12 +549,15 @@ def test_second_call_with_the_same_state_makes_no_capture(graph_runs):
 def test_graph_replay_launches_each_kernel(graph_runs):
     """A capture call launches K1 four times and K2 once (its eager step;
     the capture launches nothing), a replay as many by the profiler's
-    kernel events, and the wrappers count no replay."""
+    kernel events; the wrappers count no replay, and graphed counts each
+    replay's recorded launches."""
+    from rpg_svo_tpu_torch.core import graphed
     r = graph_runs["fast"]
     ncx, ncy = r["grid"]
     st = _clone_state(r["start"])
     counts = (tiles.tile_gather_kernel.launches,
               align_kernel.sparse_align_kernel.launches)
+    graphed.reset_jit_counts()
 
     def step(i):
         return lambda: fused.vo_step_donated(st, r["imgs"][i], r["cam"],
@@ -551,10 +566,13 @@ def test_graph_replay_launches_each_kernel(graph_runs):
     assert (tiles.tile_gather_kernel.launches,
             align_kernel.sparse_align_kernel.launches) \
         == (counts[0] + 4, counts[1] + 1)
+    assert graphed.replayed_launches() == {}
     assert _kernel_events(step(GRAPH_FROM + 2)) == (4, 1)
     assert (tiles.tile_gather_kernel.launches,
             align_kernel.sparse_align_kernel.launches) \
         == (counts[0] + 4, counts[1] + 1)
+    assert graphed.replayed_launches() == {"tile_gather": 4,
+                                           "sparse_align": 1}
 
 
 @pytest.mark.cuda
@@ -681,3 +699,233 @@ def test_graphed_vmapped_step_matches_the_eager_batch(graph_runs):
         step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# --- FrameHandler's jitted stages (core/graphed.jit) ------------------------
+STAGE_FROM = 80        # the fast handler to here, then its keyframe frame 87
+
+
+@pytest.fixture(scope="module")
+def stage_calls(scene):
+    """The fast FrameHandler from ground-truth depth to frame STAGE_FROM
+    (graphed), then the arguments of every jitted stage called from the
+    host over frames STAGE_FROM+1 .. the first keyframe, a global BA and a
+    relocalization (a blank frame, then the next), each recorded on its
+    first call: {name: (function, args, kwargs)}."""
+    import copy
+    from rpg_svo_tpu_torch.core import graphed
+    from rpg_svo_tpu_torch.core.pipeline import FrameHandler
+    ds, _ = scene
+    dev = need_cuda()
+    cfg = bench_cfg("fast")
+    fh = FrameHandler(ds.cam, cfg, SHAPE, device=dev)
+    img0, depth0, T0 = ds.frame(0)
+    fh.set_first_frame_with_depth(img0, T0.inverse(), depth0)
+    imgs = [ds.frame(i)[0] for i in range(STAGE_FROM + 21)]
+    for i in range(1, STAGE_FROM + 1):
+        fh.add_image(imgs[i], i / 50.0)
+    start = copy.copy(fh)
+    start.log = []
+    calls = {}
+    orig = graphed.Jitted.__call__
+
+    def record(self, *args, **kwargs):
+        if not graphed._flag("tracing") and not graphed._flag("disabled"):
+            calls.setdefault(self.__qualname__, (self, args, kwargs))
+        return orig(self, *args, **kwargs)
+    graphed.Jitted.__call__ = record
+    try:
+        i = STAGE_FROM
+        while "init_seeds" not in calls:
+            i += 1
+            fh.add_image(imgs[i], i / 50.0)
+        fh.global_ba()
+        fh.add_image(torch.zeros(SHAPE, device=dev), 0.0)
+        fh.add_image(imgs[i + 1], (i + 1) / 50.0)
+    finally:
+        graphed.Jitted.__call__ = orig
+    assert "sparse_img_align_raw" in calls, sorted(calls)
+    return dict(calls=calls, start=start, imgs=imgs, cfg=cfg, fh=fh)
+
+
+def _leaves_equal(a, b) -> bool:
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "sparse_img_align", "project_points", "candidate_bookkeeping",
+    "grid_select", "match_cells", "optimize_pose", "_structure_opt",
+    "_kf_policy", "update_seeds", "init_seeds", "sparse_img_align_raw"])
+def test_graphed_stage_equals_its_body(stage_calls, name):
+    """Each jitted stage of a handler keyframe frame (and relocalization's
+    alignment) replayed on the card equals its body run eagerly under
+    graphed.disable() on the same arguments, bit for bit; the replay
+    leaves its inputs as they were."""
+    from rpg_svo_tpu_torch.core import graphed
+    f, args, kwargs = stage_calls["calls"][name]
+    before = [x.clone() for x in pytree.tree_leaves((args, kwargs))
+              if isinstance(x, torch.Tensor)]
+    got = f(*args, **kwargs)
+    with graphed.disable():
+        want = f(*args, **kwargs)
+    after = [x for x in pytree.tree_leaves((args, kwargs))
+             if isinstance(x, torch.Tensor)]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert _leaves_equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_graphed_bundle_adjustments_equal_their_bodies(stage_calls):
+    """Global BA (the handler's call), local BA (the accurate preset's)
+    and two-view BA on the fast handler's map: replays bit-equal to their
+    bodies (the per-camera sums are one-hot matmuls, which sum in one
+    order every run)."""
+    from rpg_svo_tpu_torch.core import graphed
+    from rpg_svo_tpu_torch.core.local_ba import (
+        run_local_ba, run_two_view_ba)
+    fh = stage_calls["fh"]
+    acc = bench_cfg("accurate")
+    act = torch.nonzero(fh.map.kf.active).reshape(-1)
+    s0, s1 = act[0], act[-1]
+    cases = [
+        (run_local_ba, (fh.map, s1, acc.loba_robust_huber_width,
+                        acc.loba_thresh, fh.cam.fx),
+         dict(n_iter=acc.loba_num_iter, core_n_kfs=acc.core_n_kfs)),
+        (run_two_view_ba, (fh.map, s0, s1, acc.loba_robust_huber_width,
+                           acc.loba_thresh, fh.cam.fx),
+         dict(n_iter=acc.loba_num_iter)),
+        stage_calls["calls"]["run_global_ba"]]
+    for f, args, kw in cases:
+        f(*args, **kw)
+        got = f(*args, **kw)
+        with graphed.disable():
+            want = f(*args, **kw)
+        assert _leaves_equal(got, want), f.__qualname__
+        assert f.captures >= 1 and f.replays >= 2, f.stats()
+
+
+@pytest.mark.cuda
+def test_stage_with_new_values_makes_no_capture_and_owns_no_output(
+        stage_calls):
+    """optimize_pose called again with other values of the same shapes
+    makes no capture and equals its body on them; a tensor it returned,
+    written by the caller, changes nothing in the next call."""
+    from rpg_svo_tpu_torch.core import graphed
+    f, args, kwargs = stage_calls["calls"]["optimize_pose"]
+    first = f(*args, **kwargs)
+    caps = f.captures
+    T, p_w = args[0], args[1]
+    moved = (SE3(T.R, T.t + 1e-3),) + (p_w * 1.001,) + tuple(args[2:])
+    got = f(*moved, **kwargs)
+    assert f.captures == caps
+    with graphed.disable():
+        want = f(*moved, **kwargs)
+    assert _leaves_equal(got, want)
+    first.T_f_w.t.fill_(7.0)
+    again = f(*args, **kwargs)
+    assert not bool((again.T_f_w.t == 7.0).all())
+    with graphed.disable():
+        assert _leaves_equal(again, f(*args, **kwargs))
+
+
+@pytest.mark.cuda
+def test_capture_refuses_a_host_sync():
+    """A jitted body that reads a value back to the host (.item()) runs
+    eagerly, but its capture raises under sync-debug "error"; the mode is
+    restored and no graph is kept."""
+    from rpg_svo_tpu_torch.core import graphed
+    dev = need_cuda()
+
+    @graphed.jit
+    def reads_back(x):
+        return x * float(x.sum().item())
+
+    x = torch.arange(4.0, device=dev)
+    with graphed.disable():
+        assert torch.equal(reads_back(x), x * 6.0)
+    with pytest.raises(RuntimeError):
+        reads_back(x)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert reads_back.stats()["graphs"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_capture_refuses_a_body_that_writes_its_input():
+    """A jitted body that writes a tensor argument in place raises at
+    capture (a replay would write its input buffer, not the caller's
+    tensor) and keeps no graph."""
+    from rpg_svo_tpu_torch.core import graphed
+    dev = need_cuda()
+
+    @graphed.jit
+    def writes(x):
+        return x.mul_(2.0)
+
+    x = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="in place"):
+        writes(x)
+    assert writes.stats()["graphs"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_graphed_handler_equals_the_eager_handler(stage_calls):
+    """The fast handler over frames 81-100 (keyframe 87) from the same
+    start, graphed and under graphed.disable(): bit-equal poses, the same
+    results and keyframes, the same K1 and K2 kernel events (the
+    profiler's), no capture in the graphed run (every stage was captured
+    before), and no more host syncs (sync-debug "warn" counts)."""
+    import copy
+    import warnings
+    from rpg_svo_tpu_torch.core import graphed
+    r = stage_calls
+
+    def run(disabled):
+        h = copy.copy(r["start"])
+        h.log = []
+        with (graphed.disable() if disabled else contextlib.nullcontext()):
+            infos = [h.add_image(r["imgs"][j], j / 50.0)
+                     for j in range(STAGE_FROM + 1, STAGE_FROM + 21)]
+        return infos, h.last_frame.T_f_w.t.clone()
+    run(False)
+    caps = sum(v["captures"] for v in graphed.jit_stats().values())
+    gi, gt = run(False)
+    assert sum(v["captures"] for v in graphed.jit_stats().values()) == caps
+    ei, et = run(True)
+    assert torch.equal(gt, et)
+    assert [i["result"] for i in gi] == [i["result"] for i in ei]
+    assert any(i.get("is_keyframe") for i in gi)
+
+    def launches(disabled):
+        """(K1, K2) as counted (the wrappers' own and the graph replays'),
+        and as the profiler saw them: never more."""
+        before = (tiles.tile_gather_kernel.launches,
+                  align_kernel.sparse_align_kernel.launches)
+        graphed.reset_jit_counts()
+        seen = _kernel_events(lambda: run(disabled))
+        rep = graphed.replayed_launches()
+        counted = (tiles.tile_gather_kernel.launches - before[0]
+                   + rep.get("tile_gather", 0),
+                   align_kernel.sparse_align_kernel.launches - before[1]
+                   + rep.get("sparse_align", 0))
+        assert seen[0] <= counted[0] and seen[1] <= counted[1]
+        return counted, seen
+    (g_counted, g_seen), (e_counted, e_seen) = launches(False), launches(True)
+    assert g_counted == e_counted and min(g_counted) > 0
+    assert g_seen == e_seen, (g_seen, e_seen, g_counted)
+
+    def syncs(disabled):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(disabled)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(x.message) for x in w)
+    assert syncs(False) <= syncs(True)
