@@ -805,6 +805,7 @@ def _handler_run(scene, cfg, n, camera, frames, first, label, events_from):
     are profiled inside it; ms per frame leaves that window out, with the
     profiler's start and stop."""
     import torch
+    from rpg_svo_tpu_torch.core import spans
     from rpg_svo_tpu_torch.core.pipeline import FrameHandler
     fh = FrameHandler(camera, cfg, scene.shape, device=scene.dev)
     fh.set_first_frame_with_depth(first[0], scene.T0.inverse(), first[1])
@@ -812,7 +813,9 @@ def _handler_run(scene, cfg, n, camera, frames, first, label, events_from):
     infos, pos = [], []
     _reset_counts()
     t0 = time.perf_counter()
-    with _add_image_events(events_from, EVENTS_WINDOW) as ev:
+    # the stage times come from the handler's spans
+    with spans.recording(), \
+            _add_image_events(events_from, EVENTS_WINDOW) as ev:
         for i in range(1, n + 1):
             infos.append(fh.add_image(frames[i - 1], i / 50.0))
             pos.append(fh.last_frame.T_f_w.inverse().t)
@@ -839,8 +842,6 @@ def _handler_run(scene, cfg, n, camera, frames, first, label, events_from):
                / (n - EVENTS_WINDOW) * 1e3,
                "ms_per_frame_with_window": wall / n * 1e3,
                "stage_ms_per_frame": stage_ms,
-               "timer_syncs_per_frame":
-                   sum(f["timer_syncs"] for f in infos) / n,
                "keyframes": kfs, "failed": failed, "launches": launches,
                "launch_frames": n,
                "launches_per_frame": {k: v / n for k, v in launches.items()},
@@ -864,9 +865,9 @@ def _handler_run(scene, cfg, n, camera, frames, first, label, events_from):
 
 
 def _sync_replay(snaps, frames, infos, pos, k):
-    """Host syncs per frame (sync debug mode plus the stage timers'
-    synchronizes) over the CPU_FRAMES frames holding frame k, replayed
-    from the snapshot before them; the replay agrees with the run."""
+    """Host syncs per frame (sync debug mode) over the CPU_FRAMES frames
+    holding frame k, replayed from the snapshot before them; the replay
+    agrees with the run."""
     import torch
     s = max(i for i in snaps if i < k and k <= i + CPU_FRAMES)
     window = range(s + 1, s + CPU_FRAMES + 1)
@@ -879,12 +880,8 @@ def _sync_replay(snaps, frames, infos, pos, k):
     for (info, t_wc), j in zip(out, window):
         assert info["result"] == infos[j - 1]["result"], j
         assert float(np.abs(t_wc.cpu().numpy() - pos[j - 1]).max()) < 1e-5
-    dbg = len(syncs) / CPU_FRAMES
-    tim = sum(i["timer_syncs"] for i, _ in out) / CPU_FRAMES
     return {"frames": [s + 1, s + CPU_FRAMES],
-            "debug_mode_syncs_per_frame": dbg,
-            "timer_syncs_per_frame": tim,
-            "host_syncs_per_frame": dbg + tim,
+            "host_syncs_per_frame": len(syncs) / CPU_FRAMES,
             "sync_sites": sorted(set(syncs))}
 
 
@@ -913,9 +910,7 @@ def _camera_run(scene, cfg, camera, label, n, limits):
     sm["sparse_img_align_total_s"] = \
         sm["stage_ms_per_frame"]["sparse_img_align"] * n / 1e3
     print(f"# {label}: {sm['host_syncs_per_frame']:.2f} host syncs per "
-          f"frame ({sm['replay']['debug_mode_syncs_per_frame']:.2f} reads, "
-          f"{sm['replay']['timer_syncs_per_frame']:.2f} stage timers); "
-          f"launches per frame {sm['launches_per_frame']}; sparse "
+          f"frame; launches per frame {sm['launches_per_frame']}; sparse "
           f"alignment {sm['sparse_img_align_total_s']:.3f} s in all; frame "
           f"{s + 1}: {ops} device ops, {dms:.3f} ms device time "
           f"(limits {limits[0]:.4f} / {limits[1]:.4f} mm)", flush=True)
@@ -2342,7 +2337,7 @@ def _handler_graph_phase(scene, cfgs, cam, imgs, first) -> dict:
             counted = _run_launches()
             misses = _seen_by_profiler(ev, counted, (preset, way))
             mb1 = graphed.jit_stats()
-            out, syncs = _host_syncs(torch, lambda: run_window(way))
+            _, syncs = _host_syncs(torch, lambda: run_window(way))
             host = statistics.median(rounds[way])
             per[way] = {
                 "host_ms_per_frame": host, "rounds_ms": rounds[way],
@@ -2357,9 +2352,7 @@ def _handler_graph_phase(scene, cfgs, cam, imgs, first) -> dict:
                 "events_per_frame": {k: ev[k] / HG_WINDOW for k in counted},
                 "launches_per_frame": {k: v / HG_WINDOW
                                        for k, v in counted.items()},
-                "host_syncs_per_frame": (len(syncs) + sum(
-                    f["timer_syncs"] for f in out)) / HG_WINDOW,
-                "debug_mode_syncs_per_frame": len(syncs) / HG_WINDOW,
+                "host_syncs_per_frame": len(syncs) / HG_WINDOW,
                 "sync_sites": sorted(set(syncs)),
                 "copy_device_ms_per_frame": ev["foreach_copy_ms"]
                 / HG_WINDOW,
@@ -3056,9 +3049,7 @@ def main() -> int:
         handler["steps"][label] = {"frame": j, "device_ops": ops,
                                    "device_ms": dms, "kernel_device_ms": by}
     print(f"# FrameHandler fast replay of frames {s + 1}-{s + CPU_FRAMES}: "
-          f"{handler['host_syncs_per_frame']:.2f} host syncs per frame "
-          f"({handler['replay']['debug_mode_syncs_per_frame']:.2f} reads, "
-          f"{handler['replay']['timer_syncs_per_frame']:.2f} stage timers); "
+          f"{handler['host_syncs_per_frame']:.2f} host syncs per frame; "
           f"steps {json.dumps(handler['steps'])}", flush=True)
 
     # --- 8. FrameHandler, accurate, to the first keyframe and past it ------

@@ -54,7 +54,7 @@ import torch.utils._pytree as pytree
 from rpg_svo_tpu_torch import is_batched, resolve_device
 from rpg_svo_tpu_torch.config import Config
 from rpg_svo_tpu_torch.core import depth_filter as df
-from rpg_svo_tpu_torch.core import graphed
+from rpg_svo_tpu_torch.core import graphed, spans
 from rpg_svo_tpu_torch.core import map as svomap
 from rpg_svo_tpu_torch.core.frame import scene_depth
 from rpg_svo_tpu_torch.core.local_ba import run_local_ba
@@ -190,12 +190,16 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
     m = m._replace(pt=pt._replace(ptype=ptype))
 
     if cfg.loba_num_iter > 0:
+        if spans.ON:
+            spans.switch("local_ba", dev)
         m = run_local_ba(m, torch.clamp(slot, min=0),
                          cfg.loba_robust_huber_width, cfg.loba_thresh,
                          cam.fx, n_iter=cfg.loba_num_iter,
                          core_n_kfs=cfg.core_n_kfs,
                          shard_axis=cfg.shard_axis, enable=is_kf,
                          inplace=inplace)
+        if spans.ON:
+            spans.switch("keyframe", dev)
 
     # seeds in the cells this frame's features leave free, compacted to
     # the per-keyframe budget before their tiles are cut
@@ -230,7 +234,11 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
              ncx: int, ncy: int, img_shape: Tuple[int, int],
              inplace: bool) -> Tuple[VOState, StepOut]:
     """The step of ``vo_step`` and ``vo_step_donated``; ``inplace`` writes
-    the pools' rows in place."""
+    the pools' rows in place.  With spans on, each stage is a span
+    (``core/spans.py``): pyramid_creation, sparse_img_align, reproject,
+    pose_optimizer, quality_gates, point_optimizer, kf_policy,
+    depth_filter, keyframe (split by local_ba in the accurate preset);
+    captured into a graph, their boundaries are event nodes."""
     abl = frozenset(cfg.ablate)
     if abl - ABLATABLE:
         raise NotImplementedError(
@@ -240,12 +248,16 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     C = ncx * ncy
     F = frame_feature_cap(C, cfg.max_fts)
     shapes = pyramid_shapes(img_shape, cfg.n_levels_total)
+    if spans.ON:
+        spans.begin("pyramid_creation", dev)
     pad = build_padded_pyramid(img.to(dev), cfg.n_levels_total)
     m = state.m
     P = m.pt.pos.shape[0]
 
     # --- alignment reference: the last frame, or the closest keyframe when
     # relocalizing (frame_handler_mono.cpp:237-265); both computed, one kept
+    if spans.ON:
+        spans.switch("sparse_img_align", dev)
     reloc = state.stage == STAGE_RELOC
     kf_slot = torch.clamp(
         svomap.closest_kf(m.kf, SE3(state.R, state.t).inverse().t), min=0)
@@ -283,6 +295,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
         reloc_fail = reloc & (align.n_tracked <= 30)
 
     # --- 3. reprojection + matching
+    if spans.ON:
+        spans.switch("reproject", dev)
     if "reproject" in abl:
         # the reference features stand for the matches, as in the JAX stub
         zi = torch.zeros((F,), dtype=torch.int32, device=dev)
@@ -316,6 +330,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     enough = rep.n_matches >= cfg.quality_min_fts
 
     # --- 4. pose optimization
+    if spans.ON:
+        spans.switch("pose_optimizer", dev)
     feat_f = cam.cam2world(rep.feat_px)
     pid = torch.clamp(rep.feat_point, 0, P - 1).to(torch.int64)
     if "pose" in abl:
@@ -331,6 +347,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                              n_iter=cfg.poseoptim_num_iter)
 
     # --- 6. quality gates (frame_handler_base.cpp:157-171)
+    if spans.ON:
+        spans.switch("quality_gates", dev)
     enough_edges = pres.n_obs >= 20
     insufficient = pres.n_obs < cfg.quality_min_fts
     dropped = (state.num_obs_last - pres.n_obs) > cfg.quality_max_drop_fts
@@ -342,6 +360,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                              torch.full_like(rep.feat_point, -1))
 
     # --- 5. structure optimization (masked off on failure)
+    if spans.ON:
+        spans.switch("point_optimizer", dev)
     if "struct" not in abl:
         m = _structure_opt_fused(m, T_out, frame_id, feat_point, feat_valid,
                                  cfg.structureoptim_max_pts,
@@ -350,6 +370,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
 
     # --- scene depth and the keyframe policy (frame_handler_mono.cpp:
     # 183-197: no overlapping keyframe within kfselect_mindist)
+    if spans.ON:
+        spans.switch("kf_policy", dev)
     if "kf" in abl:
         is_kf = torch.zeros((), dtype=torch.bool, device=dev)
     else:
@@ -366,6 +388,8 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     # --- 7. depth filter: every df_update_every-th frame and on keyframes
     # (the reference's mapping-queue drops, depth_filter.cpp:82-97), when
     # some seed has work; a masked update is an exact no-op
+    if spans.ON:
+        spans.switch("depth_filter", dev)
     if "df" not in abl:
         due = is_kf
         if cfg.df_update_every > 1:
@@ -385,10 +409,14 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
 
     # --- 8. keyframe insertion, binding, local BA, seeds, map cap; every
     # write is masked with is_kf
+    if spans.ON:
+        spans.switch("keyframe", dev)
     if "kf" not in abl:
         m = _keyframe_stages(m, pad, T_out, frame_id, rep, feat_f, feat_point,
                              feat_valid, is_kf, depth_mean, depth_min, cam,
                              cfg, ncx, ncy, inplace)
+    if spans.ON:
+        spans.end()
 
     new_stage = torch.where(failed, STAGE_RELOC, STAGE_DEFAULT) \
         .to(torch.int32)
@@ -419,6 +447,10 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     (``parallel/streams.py``), the step runs eagerly; the new state then
     shares the tensors the step did not write."""
     if not graphed.on_card(*pytree.tree_leaves(state), img):
+        if spans.ON:
+            with spans.span("vo_step", state.R.device):
+                return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
+                                inplace=False)
         return _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
                         inplace=False)
     return graphed.run_kept(
@@ -450,7 +482,11 @@ def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
     ``torch.where`` copies).  Returns the input state, now the new one."""
     new, out = _vo_step(state, img, cam, cfg, ncx, ncy, img_shape,
                         inplace=True)
+    if spans.ON:
+        spans.begin("write_back", state.R.device)
     write_back(state, new)
+    if spans.ON:
+        spans.end()
     return state, out
 
 
@@ -477,6 +513,10 @@ def vo_step_donated(state: VOState, img: torch.Tensor, cam, cfg: Config,
         raise RuntimeError("vo_step_donated does not run under vmap: a "
                            "stream batch steps with vmapped_vo_step")
     if not graphed.on_card(state.R):
+        if spans.ON:
+            with spans.span("vo_step_donated", state.R.device):
+                return _donated_step(state, img, cam, cfg, ncx, ncy,
+                                     img_shape)
         return _donated_step(state, img, cam, cfg, ncx, ncy, img_shape)
     return graphed.run(
         functools.partial(_donated_step, cam=cam, cfg=cfg, ncx=ncx, ncy=ncy,

@@ -42,6 +42,15 @@ The constant device tables a step reads (``ops/tiles._level_table``,
 so no graph outlives a table it reads.  At most ``MAX_GRAPHS`` graphs and
 as many slots are kept, least recently used first out; dropping a graph
 frees its private memory pool, dropping a slot drops its graph.
+
+With spans on (``core/spans.py``) each entry call is a host span
+(``graphed.run``, ``graphed.run_kept``, ``jit.<function>``: no events)
+and each replay a span ``replay`` timed by events around it.  The
+switch is part of the graph and slot keys: a graph captured with spans
+on holds the step's stage boundaries as event nodes, and every replay of
+it yields that frame's stage spans; one captured with them off holds
+none.  The MB a slot copies in and out are always counted
+(``kept_copy_stats``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch import is_batched
+from rpg_svo_tpu_torch.core import spans
 from rpg_svo_tpu_torch.parallel.gspmd import ambient_mesh
 
 # each graph keeps its step's intermediates in a private pool (25-85 MB
@@ -75,6 +85,7 @@ class _Graph(NamedTuple):
     launches: dict              # kernel launches a replay makes, by kernel
     capture_s: float            # the capture alone, after the eager step
     pool_mb: float              # device memory the capture reserved
+    marks: object               # its span boundaries (spans.Marks) or None
 
 
 class _Slot(NamedTuple):
@@ -95,13 +106,14 @@ def on_card(*tensors) -> bool:
 
 def _signature(static, leaves, img: torch.Tensor) -> tuple:
     return (static, tuple(img.shape), img.dtype, leaves[0].device,
-            ambient_mesh())
+            ambient_mesh(), spans.ON)
 
 
 def graph_key(static, state, img: torch.Tensor) -> tuple:
     """The key of the graph that steps ``state`` on ``img``: the static
     arguments, the image's shape and dtype, the state's device, the
-    ambient mesh and the storage of every state leaf."""
+    ambient mesh, whether spans are on (a graph captured with them holds
+    its stages' boundary events) and the storage of every state leaf."""
     leaves = pytree.tree_leaves(state)
     return _signature(static, leaves, img) + tuple(
         (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype) for x in leaves)
@@ -121,7 +133,14 @@ def run(step: Callable, static, state, img: torch.Tensor):
     state that writes every leaf of ``state`` in place, as a replay of the
     graph of ``graph_key(static, state, img)``; captured on the first call
     for that key.  ``out`` is a NamedTuple of tensors, returned as
-    copies."""
+    copies.  With spans on, the call is a host span ``graphed.run``."""
+    if spans.ON:
+        with spans.span("graphed.run", None, None):
+            return _run(step, static, state, img)
+    return _run(step, static, state, img)
+
+
+def _run(step: Callable, static, state, img: torch.Tensor):
     key = graph_key(static, state, img)
     g = _graphs.get(key)
     if g is None:
@@ -131,19 +150,22 @@ def run(step: Callable, static, state, img: torch.Tensor):
         return state, out
     _graphs.move_to_end(key)
     g.img.copy_(img)
-    _replay_graph(g.graph, g.launches)
+    _replay_graph(g.graph, g.launches, g.img.device, g.marks)
     return state, type(g.out)(*(t.clone() for t in g.out))
 
 
 def _capture(step: Callable, state, img: torch.Tensor):
-    """(the eager step's outputs, the captured graph) of one key."""
+    """(the eager step's outputs, the captured graph) of one key; with
+    spans on, the step's span boundaries are captured as event nodes."""
     dev = pytree.tree_leaves(state)[0].device
     with torch.cuda.device(dev):
         static_img = torch.empty(img.shape, dtype=img.dtype, device=dev)
         static_img.copy_(img)
-    c = _capture_graph(step, (state, static_img), {}, dev)
+    marks = spans.Marks(dev) if spans.ON else None
+    c = _capture_graph(step, (state, static_img), {}, dev, marks)
     return c.eager[1], _Graph(c.graph, static_img, c.out[1], c.launches,
-                              c.capture_s, c.pool_mb)
+                              c.capture_s, c.pool_mb,
+                              marks if marks and marks.events else None)
 
 
 def _copy_leaves(dst: list, src: list) -> None:
@@ -158,31 +180,41 @@ def _copy_leaves(dst: list, src: list) -> None:
         torch._foreach_copy_(d, s)
 
 
-def fresh_copy(state):
-    """A copy of ``state`` in new storage (each leaf's strides kept where
-    it is dense)."""
+# MB the kept-state entries copy into their slots and out of them
+# (``slot``, ``fresh_copy``), always counted
+_kept = {"in_copied_mb": 0.0, "out_copied_mb": 0.0}
+
+
+def _copy(state):
     leaves, spec = pytree.tree_flatten(state)
     out = [torch.empty_like(x) for x in leaves]
     _copy_leaves(out, leaves)
     return pytree.tree_unflatten(out, spec)
 
 
+def fresh_copy(state):
+    """A copy of ``state`` in new storage (each leaf's strides kept where
+    it is dense); counted as copied out (``kept_copy_stats``)."""
+    _kept["out_copied_mb"] += _mb(pytree.tree_leaves(state))
+    return _copy(state)
+
+
 def slot(static, state, img: torch.Tensor):
     """The slot of ``slot_key(static, state, img)`` holding a copy of
     ``state``: made on the first call for that key, written in place
-    later."""
+    later; counted as copied in (``kept_copy_stats``)."""
     key = slot_key(static, state, img)
     s = _slots.get(key)
     if s is None:
-        own = fresh_copy(state)
-        mb = sum(x.numel() * x.element_size()
-                 for x in pytree.tree_leaves(own)) / 1e6
-        _slots[key] = _Slot(own, graph_key(static, own, img), mb)
+        own = _copy(state)
+        s = _slots[key] = _Slot(own, graph_key(static, own, img),
+                                _mb(pytree.tree_leaves(own)))
         while len(_slots) > MAX_GRAPHS:
             _graphs.pop(_slots.popitem(last=False)[1].graph_key, None)
-        return own
-    _slots.move_to_end(key)
-    _copy_leaves(pytree.tree_leaves(s.state), pytree.tree_leaves(state))
+    else:
+        _slots.move_to_end(key)
+        _copy_leaves(pytree.tree_leaves(s.state), pytree.tree_leaves(state))
+    _kept["in_copied_mb"] += s.mb
     return s.state
 
 
@@ -190,10 +222,24 @@ def run_kept(step: Callable, static, state, img: torch.Tensor):
     """``run`` for an entry that keeps its input: ``state`` is copied into
     its slot, the slot is stepped by ``run``, and the result is a new
     state of copies of the slot's leaves, with copies of the outputs.
-    ``state`` is left as it was."""
+    ``state`` is left as it was.  With spans on, the call is a host span
+    ``graphed.run_kept``."""
+    if spans.ON:
+        with spans.span("graphed.run_kept", None, None):
+            return _run_kept(step, static, state, img)
+    return _run_kept(step, static, state, img)
+
+
+def _run_kept(step: Callable, static, state, img: torch.Tensor):
     own = slot(static, state, img)
     _, out = run(step, static, own, img)
     return fresh_copy(own), out
+
+
+def kept_copy_stats() -> dict:
+    """MB copied into the slots (``in_copied_mb``) and out of them
+    (``out_copied_mb``) since ``reset_jit_counts``."""
+    return dict(_kept)
 
 
 def graphs() -> list:
@@ -389,10 +435,12 @@ class _Capture(NamedTuple):
     pool_mb: float              # device memory the capture reserved
 
 
-def _capture_graph(fn: Callable, args, kwargs, dev: torch.device) -> _Capture:
+def _capture_graph(fn: Callable, args, kwargs, dev: torch.device,
+                   marks=None) -> _Capture:
     """``fn(*args, **kwargs)`` run eagerly on a side stream (it warms the
     kernels, the device tables, the allocator and any NCCL communicator),
-    then captured under sync-debug "error"."""
+    then captured under sync-debug "error"; span boundaries inside the
+    capture go into ``marks`` (``spans.capturing``; None: nowhere)."""
     with torch.cuda.device(dev):
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -411,7 +459,8 @@ def _capture_graph(fn: Callable, args, kwargs, dev: torch.device) -> _Capture:
         # is held to the capture's rules all the same
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             reserved = torch.cuda.memory_reserved()
-            with _sync_error(), _tracing(), _recording(launches):
+            with _sync_error(), _tracing(), _recording(launches), \
+                    spans.capturing(marks):
                 out = fn(*args, **kwargs)
         return _Capture(eager, graph, out, launches,
                         time.perf_counter() - t0,
@@ -444,8 +493,14 @@ def record_launch(kernel: str) -> None:
         rec[kernel] = rec.get(kernel, 0) + 1
 
 
-def _replay_graph(graph, launches: dict) -> None:
-    graph.replay()
+def _replay_graph(graph, launches: dict, device: torch.device,
+                  marks=None) -> None:
+    """``graph.replay()``; with spans on, inside a span ``replay`` timed by
+    events around it, whose children are the stages ``marks`` bounds."""
+    if spans.ON:
+        spans.replay(graph, device, marks)
+    else:
+        graph.replay()
     for k, n in launches.items():
         _replayed[k] = _replayed.get(k, 0) + n
 
@@ -527,6 +582,10 @@ class Jitted:
         # the input buffers are shared: one call at a time copies into them
         # and replays (a thread feeding frames may call a renderer)
         with _call_lock:
+            if spans.ON:
+                with spans.span("jit." + self.__qualname__, None, None):
+                    return self._replay(tensors, rebuild,
+                                        self._key(static, tensors, rest))
             return self._replay(tensors, rebuild,
                                 self._key(static, tensors, rest))
 
@@ -542,7 +601,7 @@ class Jitted:
             self._graphs.move_to_end(key)
             _copy_leaves(g.inputs, tensors)
         self.in_copied_mb += g.in_mb
-        _replay_graph(g.graph, g.launches)
+        _replay_graph(g.graph, g.launches, tensors[0].device)
         self.replays += 1
         out, fresh, srcs = [], [], []
         for kind, v in g.outs:
@@ -617,8 +676,9 @@ def jit_stats() -> dict:
 
 def reset_jit_counts() -> None:
     """Zero every function's capture, replay, eviction and copy counts,
-    and the graph replays' kernel launches."""
+    the graph replays' kernel launches and the slots' copy counts."""
     _replayed.clear()
+    _kept.update(in_copied_mb=0.0, out_copied_mb=0.0)
     for f in _jitted:
         f.captures = f.replays = f.evictions = 0
         f.in_copied_mb = f.out_copied_mb = 0.0

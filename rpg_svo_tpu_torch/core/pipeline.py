@@ -16,6 +16,18 @@ Stages (frame_handler_base.h:45-51): paused, first, second, default,
 relocalizing.  Tracking quality (frame_handler_base.cpp:157-171):
 insufficient below ``quality_min_fts`` matches, bad when the match count
 dropped by more than ``quality_max_drop_fts``.
+
+With spans on (``core/spans.py``; the reference's SVO_TRACE build), a
+frame is a span ``add_image`` around its stages' spans, named as the
+reference's timers (frame_handler_base.cpp:46-74): pyramid_creation,
+sparse_img_align, reproject (around reproject_kfs, reproject_candidates,
+reproject_kfs again and feature_align), pose_optimizer,
+point_optimizer, local_ba, and depth_filter and keyframe (insertion,
+seed init, map cap).  Each adds its time to the frame's info dict under
+its name once its events are read (at the next frame, or at
+``spans.flush()``): the stream's time between its boundaries on a card,
+the host's on the CPU.  With spans off no timer runs and the info dict
+holds none of these keys.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from rpg_svo_tpu_torch.core import depth_filter as df
 from rpg_svo_tpu_torch.core import graphed
 from rpg_svo_tpu_torch.core import initialization as init_mod
 from rpg_svo_tpu_torch.core import map as svomap
+from rpg_svo_tpu_torch.core import spans
 from rpg_svo_tpu_torch.core.frame import (
     FrameState, frame_from_pad, make_frame, scene_depth)
 from rpg_svo_tpu_torch.core.fused import (
@@ -64,32 +77,6 @@ RESULT_FAILURE = "failure"
 QUALITY_GOOD = "good"
 QUALITY_BAD = "bad"
 QUALITY_INSUFFICIENT = "insufficient"
-
-
-class _StageTimer:
-    """Wall-clock per-stage timers with the reference's SVO_TRACE names
-    (frame_handler_base.cpp:46-74).  On the card every mark waits for the
-    device (``torch.cuda.synchronize``, where JAX blocks on the stage's
-    outputs), so a stage's time is its device and dispatch cost; ``syncs``
-    counts those waits."""
-
-    def __init__(self, info: dict, device: torch.device):
-        self.info = info
-        self.device = device
-        self.syncs = 0
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            self.syncs += 1
-        now = time.perf_counter()
-        self.info[name] = self.info.get(name, 0.0) + (now - self.t)
-        self.t = now
-
-    def skip(self):
-        """Reset the reference point without attributing elapsed time."""
-        self.t = time.perf_counter()
 
 
 def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -164,7 +151,6 @@ class FrameHandler:
         self.initializer = init_mod.KltHomographyInit(cam, cfg,
                                                       self.n_cells)
         self._init_frame0: Optional[FrameState] = None   # bootstrap frame 0
-        self._timer = None
         self.set_start()
 
     def _empty_map(self) -> MapState:
@@ -227,9 +213,17 @@ class FrameHandler:
         t0 = time.perf_counter()
         info = {"timestamp": timestamp, "stage": self.stage,
                 "frame_id": self.next_id}
-        timer = self._timer = _StageTimer(info, self.device)
+        if spans.ON:
+            with spans.span("add_image", self.device, info):
+                return self._add_image(img, timestamp, info, t0)
+        return self._add_image(img, timestamp, info, t0)
+
+    def _add_image(self, img, timestamp: float, info: dict, t0: float):
+        if spans.ON:
+            spans.begin("pyramid_creation", self.device)
         frame = self._frame(img, timestamp)
-        timer.mark("pyramid_creation")
+        if spans.ON:
+            spans.end()
         if self.stage == STAGE_DEFAULT_FRAME:
             res, frame, info = self._process_frame(frame, info)
         elif self.stage == STAGE_RELOCALIZING:
@@ -245,7 +239,6 @@ class FrameHandler:
         self.last_frame = frame
         info["result"] = res
         info["proc_time"] = time.perf_counter() - t0
-        info["timer_syncs"] = timer.syncs
         self.log.append(info)
         return info
 
@@ -347,10 +340,11 @@ class FrameHandler:
         """Sparse alignment, reprojection and pose refinement: (n_matches,
         n_edges, frame with its pose and feature table)."""
         cfg = self.cfg
+        dev = self.device
         last = self.last_frame
         P = self.map.pt.pos.shape[0]
-        timer = self._timer
-        timer.skip()
+        if spans.ON:
+            spans.begin("sparse_img_align", dev)
         pid = torch.clamp(last.feat_point, 0, P - 1).to(torch.int64)
         depth = torch.linalg.vector_norm(
             last.T_f_w.apply(self.map.pt.pos[pid]), dim=-1)
@@ -365,31 +359,35 @@ class FrameHandler:
         T_cur = align.T_cur_ref * last.T_f_w
         frame = frame.with_pose(T_cur)
         info["img_align_n_tracked"] = int(align.n_tracked)
-        timer.mark("sparse_img_align")
 
-        # reprojection in stages, each with its own timer
+        # reprojection in stages, each its own span inside reproject
         # (frame_handler_base.cpp:51-57): point projection and grid
         # selection are reproject_kfs, the candidate pass is
         # reproject_candidates, the per-cell matching is feature_align
+        if spans.ON:
+            spans.switch("reproject", dev)
+            spans.begin("reproject_kfs", dev)
         px_all, vis0 = project_points(self.map.pt, T_cur, self.cam)
-        timer.mark("reproject_kfs")
+        if spans.ON:
+            spans.switch("reproject_candidates", dev)
         n_fail, ptype, visible = candidate_bookkeeping(self.map.pt, vis0)
-        timer.mark("reproject_candidates")
+        if spans.ON:
+            spans.switch("reproject_kfs", dev)
         has, sel_pt = grid_select(px_all, visible, ptype, cfg.grid_size,
                                   self.ncx, self.ncy, self.feat_cap)
-        timer.mark("reproject_kfs")
+        if spans.ON:
+            spans.switch("feature_align", dev)
         pt, rep = match_cells(self.map, T_cur, self.cam, n_fail, ptype, has,
                               sel_pt, cfg.n_pyr_levels - 1, frame.pad,
                               self.feat_cap)
-        timer.mark("feature_align")
+        if spans.ON:
+            spans.end()
         self.map = svomap.scrub_dead_references(self.map._replace(pt=pt))
         info["repr_n_mps"] = int(rep.n_trials)
         n_matches = int(rep.n_matches)
         info["repr_n_new_references"] = n_matches
-        info["reproject"] = (info.get("reproject_kfs", 0.0)
-                             + info.get("reproject_candidates", 0.0)
-                             + info.get("feature_align", 0.0))
-        timer.skip()
+        if spans.ON:
+            spans.end()
         frame = frame._replace(
             feat_px=rep.feat_px, feat_f=self.cam.cam2world(rep.feat_px),
             feat_level=rep.feat_level, feat_point=rep.feat_point,
@@ -398,6 +396,8 @@ class FrameHandler:
         if n_matches < cfg.quality_min_fts:
             return n_matches, 0, frame
 
+        if spans.ON:
+            spans.begin("pose_optimizer", dev)
         pid = torch.clamp(frame.feat_point, 0, P - 1).to(torch.int64)
         pres = optimize_pose(
             frame.T_f_w, self.map.pt.pos[pid], frame.feat_f,
@@ -410,7 +410,8 @@ class FrameHandler:
         info["sfba_error_final"] = float(pres.error_final)
         n_edges = int(pres.n_obs)
         info["sfba_n_edges_final"] = n_edges
-        timer.mark("pose_optimizer")
+        if spans.ON:
+            spans.end()
         return n_matches, n_edges, frame
 
     def _update_seeds(self, frame: FrameState):
@@ -436,13 +437,14 @@ class FrameHandler:
         if n_edges < 20:
             return RESULT_FAILURE, frame, info
 
-        timer = self._timer
-        timer.skip()
+        if spans.ON:
+            spans.begin("point_optimizer", dev)
         self.map = _structure_opt(
             self.map, frame.T_f_w, frame.frame_id, frame.feat_point,
             frame.feat_valid, cfg.structureoptim_max_pts,
             cfg.structureoptim_num_iter)
-        timer.mark("point_optimizer")
+        if spans.ON:
+            spans.end()
 
         self._set_quality(n_edges)
         if self.quality == QUALITY_INSUFFICIENT:
@@ -457,10 +459,16 @@ class FrameHandler:
         if not bool(need_kf) or self.quality == QUALITY_BAD:
             if cfg.df_update_every <= 1 \
                     or info["frame_id"] % cfg.df_update_every == 0:
+                if spans.ON:
+                    spans.begin("depth_filter", dev)
                 info["n_seeds"] = int(self._update_seeds(frame).n_seeds)
+                if spans.ON:
+                    spans.end()
             return RESULT_NO_KEYFRAME, frame, info
 
         # ------- new keyframe -------
+        if spans.ON:
+            spans.begin("keyframe", dev)
         info["is_keyframe"] = True
         C = self.n_cells
         F = frame.feat_px.shape[0]
@@ -492,18 +500,22 @@ class FrameHandler:
         self.map = m._replace(pt=pt._replace(ptype=ptype))
 
         if cfg.loba_num_iter > 0:
-            timer.skip()
+            if spans.ON:
+                spans.switch("local_ba", dev)
             self.map = run_local_ba(
                 self.map, slot, cfg.loba_robust_huber_width, cfg.loba_thresh,
                 self.cam.fx, n_iter=cfg.loba_num_iter,
                 core_n_kfs=cfg.core_n_kfs)
             frame = frame.with_pose(SE3(_row(self.map.kf.R, slot),
                                         _row(self.map.kf.t, slot)))
-            timer.mark("local_ba")
 
         # seeds: update against the keyframe, then new ones in its free
         # cells
+        if spans.ON:
+            spans.switch("depth_filter", dev)
         self._update_seeds(frame)
+        if spans.ON:
+            spans.switch("keyframe", dev)
         occupied = _occupied_cells(frame.feat_px, frame.feat_valid,
                                    cfg.grid_size, self.ncx, self.ncy)
         self.map = df.init_seeds(
@@ -519,6 +531,8 @@ class FrameHandler:
             far = svomap.furthest_kf(self.map.kf, frame.T_f_w.inverse().t)
             if int(far) != int(slot):
                 self.map = svomap.delete_keyframe(self.map, far)
+        if spans.ON:
+            spans.end()
         return RESULT_IS_KEYFRAME, frame, info
 
     def _relocalize(self, frame: FrameState, info):
@@ -599,7 +613,15 @@ class FrameHandler:
         slot = int(slots[0])
         info = {"frame_id": self.next_id, "timestamp": timestamp,
                 "stage": STAGE_RELOCALIZING}
-        self._timer = _StageTimer(info, self.device)
+        if spans.ON:
+            with spans.span("relocalize_frame_at_pose", self.device, info):
+                return self._relocalize_at_pose(slot, T_f_kf, img, timestamp,
+                                                info)
+        return self._relocalize_at_pose(slot, T_f_kf, img, timestamp, info)
+
+    def _relocalize_at_pose(self, slot: int, T_f_kf: SE3, img,
+                            timestamp: float, info: dict) -> bool:
+        kf = self.map.kf
         frame = self._frame(img, timestamp)
         T_f_kf = SE3(T_f_kf.R.to(self.device), T_f_kf.t.to(self.device))
         frame = frame.with_pose(T_f_kf * SE3(kf.R[slot], kf.t[slot]))

@@ -24,25 +24,32 @@ LOGS = [
 ]
 
 
+def _row(info: Dict) -> Dict:
+    row = {k: info.get(k, 0.0) for k in TIMERS + LOGS}
+    row["timestamp"] = info.get("timestamp", 0.0)
+    row["tot_time"] = info.get("proc_time", 0.0)
+    row["dropout"] = 1.0 if info.get("result") == "failure" else 0.0
+    row["n_candidates"] = info.get("n_seeds", 0)
+    return row
+
+
 class TraceWriter:
-    """Collects per-frame rows and writes <trace_dir>/<name>.csv."""
+    """Collects per-frame info dicts and writes <trace_dir>/<name>.csv.
+    The rows are made when written: a frame's stage times enter its info
+    dict once its spans are read (``core/spans.py``), after
+    ``add_image`` returned."""
 
     def __init__(self, trace_dir: str, name: str = "svo"):
         self.path = f"{trace_dir}/{name}.csv"
-        self.rows: List[Dict] = []
+        self.infos: List[Dict] = []
 
     def log_frame(self, info: Dict):
-        """One row from a FrameHandler.add_image info dict."""
-        row = {k: info.get(k, 0.0) for k in TIMERS + LOGS}
-        row["timestamp"] = info.get("timestamp", 0.0)
-        row["tot_time"] = info.get("proc_time", 0.0)
-        row["dropout"] = 1.0 if info.get("result") == "failure" else 0.0
-        row["n_candidates"] = info.get("n_seeds", 0)
-        self.rows.append(row)
+        """One row, from a FrameHandler.add_image info dict."""
+        self.infos.append(info)
 
     def flush(self):
         with open(self.path, "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=TIMERS + LOGS)
             w.writeheader()
-            w.writerows(self.rows)
+            w.writerows(_row(i) for i in self.infos)
         return self.path

@@ -30,7 +30,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from rpg_svo_tpu_torch.config import Config
-from rpg_svo_tpu_torch.core import fused, graphed
+from rpg_svo_tpu_torch.core import fused, graphed, spans
 
 
 def stack_states(states) -> "fused.VOState":
@@ -60,7 +60,11 @@ def _vmapped_donated(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
     new stacked leaf written into ``states``' storage (outside the vmap).
     Returns ``states``, now the new ones."""
     new, out = _vmapped_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
+    if spans.ON:
+        spans.begin("write_back", imgs.device)
     fused.write_back(states, new)
+    if spans.ON:
+        spans.end()
     return states, out
 
 
@@ -72,7 +76,18 @@ def vmapped_vo_step(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
     StepOut) with the same leading axis; the camera and config are
     shared, and the input states are left as they were.  On the card a
     replay of the graph of B's slot (core/graphed.run_kept; a capture on
-    the slot's first call, which raises if it fails); on the CPU eager."""
+    the slot's first call, which raises if it fails); on the CPU eager.
+    With spans on, the call is a span ``vmapped_vo_step`` around the graph
+    layer's (its host self time is the stream layer's own)."""
+    if spans.ON:
+        with spans.span("vmapped_vo_step", imgs.device):
+            return _vmapped_vo_step(states, imgs, cam, cfg, ncx, ncy,
+                                    img_shape)
+    return _vmapped_vo_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
+
+
+def _vmapped_vo_step(states, imgs: torch.Tensor, cam, cfg: Config,
+                     ncx: int, ncy: int, img_shape: Tuple[int, int]):
     if not graphed.on_card(*pytree.tree_leaves(states), imgs):
         return _vmapped_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
     return graphed.run_kept(

@@ -59,6 +59,7 @@ def run(args, cfg=None, cam_override=None):
     from rpg_svo_tpu_torch.analysis.ate import associate, ate_rmse
     from rpg_svo_tpu_torch.analysis.rpe import rpe as rpe_eval
     from rpg_svo_tpu_torch.config import accurate_preset, fast_preset
+    from rpg_svo_tpu_torch.core import spans
     from rpg_svo_tpu_torch.core.pipeline import FrameHandler
     from rpg_svo_tpu_torch.geometry.cameras import PinholeCamera
     from rpg_svo_tpu_torch.geometry.se3 import quat_to_rot, rot_to_quat
@@ -160,36 +161,39 @@ def run(args, cfg=None, cam_override=None):
 
     t_start = time.perf_counter()
     frame_i = 0
-    for ts, img, depth0, T_gt in frames():
-        if frame_i == 0 and depth0 is not None and args.seed_first_frame:
-            fh.set_first_frame_with_depth(img, T_gt.inverse(), depth0, ts)
-            entries.append(pose_entry(ts, T_gt))
-            est_ts.append(ts)
+    # the SVO_TRACE stage columns come from the handler's spans (read at
+    # the next frame and when the block ends)
+    with spans.recording():
+        for ts, img, depth0, T_gt in frames():
+            if frame_i == 0 and depth0 is not None and args.seed_first_frame:
+                fh.set_first_frame_with_depth(img, T_gt.inverse(), depth0, ts)
+                entries.append(pose_entry(ts, T_gt))
+                est_ts.append(ts)
+                frame_i += 1
+                continue
+            info = fh.add_image(img, ts)
+            tracer.log_frame(info)
+            rec = Info.from_frame_info(info, fh.quality)
+            stream.push(rec)
+            if args.verbose:
+                print(status_line(rec, stream.fps))
+            if fh.stage == "default":
+                T_wc = fh.last_frame.T_f_w.inverse()
+                entry = pose_entry(ts, T_wc)
+                entries.append(entry)
+                est_ts.append(ts)
+                if T_gt is not None:
+                    dt_vec = entry[1] - T_gt.t.cpu().numpy()
+                    terr_rows.append((ts, float(np.linalg.norm(dt_vec)),
+                                      *dt_vec.tolist()))
+                    dR = T_gt.R.cpu().numpy().T @ T_wc.R.cpu().numpy()
+                    rerr_rows.append((ts, float(np.arccos(np.clip(
+                        (np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)))))
+                if args.dataset == "blender" and args.trace_depth:
+                    dm = ds.depth(frame_i, shape)
+                    if dm is not None:
+                        depth_errs.extend(_feature_depth_errors(fh, dm))
             frame_i += 1
-            continue
-        info = fh.add_image(img, ts)
-        tracer.log_frame(info)
-        rec = Info.from_frame_info(info, fh.quality)
-        stream.push(rec)
-        if args.verbose:
-            print(status_line(rec, stream.fps))
-        if fh.stage == "default":
-            T_wc = fh.last_frame.T_f_w.inverse()
-            entry = pose_entry(ts, T_wc)
-            entries.append(entry)
-            est_ts.append(ts)
-            if T_gt is not None:
-                dt_vec = entry[1] - T_gt.t.cpu().numpy()
-                terr_rows.append((ts, float(np.linalg.norm(dt_vec)),
-                                  *dt_vec.tolist()))
-                dR = T_gt.R.cpu().numpy().T @ T_wc.R.cpu().numpy()
-                rerr_rows.append((ts, float(np.arccos(np.clip(
-                    (np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)))))
-            if args.dataset == "blender" and args.trace_depth:
-                dm = ds.depth(frame_i, shape)
-                if dm is not None:
-                    depth_errs.extend(_feature_depth_errors(fh, dm))
-        frame_i += 1
     wall = time.perf_counter() - t_start
 
     traj_path = os.path.join(args.out, "traj_estimate.txt")

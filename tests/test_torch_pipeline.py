@@ -34,6 +34,7 @@ from rpg_svo_tpu.utils.synthetic import SyntheticDataset
 from rpg_svo_tpu_torch import config as tconfig
 from rpg_svo_tpu_torch.core import fused as tfused
 from rpg_svo_tpu_torch.core import map as tmap
+from rpg_svo_tpu_torch.core import spans
 from rpg_svo_tpu_torch.core.convert import (
     handler_from_numpy, handler_to_numpy, map_from_numpy, state_to_numpy)
 from rpg_svo_tpu_torch.core.pipeline import FrameHandler
@@ -173,20 +174,22 @@ def test_the_jax_run_exercises_every_stage(hrun):
 def test_handler_from_ground_truth_depth_matches_jax(hrun):
     """set_first_frame_with_depth, then 20 frames of add_image: per frame
     the same result, keyframe and reprojection match count, and t_wc
-    within 1e-3 m."""
+    within 1e-3 m; with spans on (the SVO_TRACE build), every frame's info
+    holds the tracking stages' times."""
     r = hrun
     fh = FrameHandler(r["cam"], r["tcfg"], img_shape=SHAPE, device="cpu")
     Tfw = r["T0"].inverse()
     fh.set_first_frame_with_depth(T(r["img0"]), TSE3(T(Tfw.R), T(Tfw.t)),
                                   T(r["depth0"]))
     dt = 0.0
-    for i, (ji, jt) in enumerate(zip(r["infos"], r["t_wc"]), start=1):
-        ti = fh.add_image(T(r["imgs"][i]), i / 50.0)
-        for k in ("result", "is_keyframe", "repr_n_new_references"):
-            assert ti.get(k) == ji.get(k), (i, k)
-        dt = max(dt, float(np.abs(fh.last_frame.T_f_w.inverse().t.numpy()
-                                  - jt).max()))
-        assert set(TRACE_NAMES) <= set(ti), set(TRACE_NAMES) - set(ti)
+    with spans.recording():
+        for i, (ji, jt) in enumerate(zip(r["infos"], r["t_wc"]), start=1):
+            ti = fh.add_image(T(r["imgs"][i]), i / 50.0)
+            for k in ("result", "is_keyframe", "repr_n_new_references"):
+                assert ti.get(k) == ji.get(k), (i, k)
+            dt = max(dt, float(np.abs(
+                fh.last_frame.T_f_w.inverse().t.numpy() - jt).max()))
+            assert set(TRACE_NAMES) <= set(ti), set(TRACE_NAMES) - set(ti)
     assert dt < 1e-3, dt
     assert fh.tracking_quality() == r["fh"].tracking_quality()
     assert fh.last_processing_time() > 0
@@ -318,13 +321,15 @@ def test_structure_opt_keeps_point_0_against_padded_rows(hrun):
 
 def test_accurate_keyframe_step_with_local_ba_matches_jax():
     """The accurate preset from ground-truth depth: the first keyframe
-    runs local BA in add_image; the port from the JAX state before it."""
+    runs local BA in add_image (its span with spans on, the SVO_TRACE
+    build); the port from the JAX state before it."""
     r = _jax_run("accurate", 8, stop_at_keyframe=True)
     i = len(r["infos"])
     ji = r["infos"][-1]
     assert ji.get("is_keyframe") and "local_ba" in ji
     fh = _port(r, i)
-    ti = fh.add_image(T(r["imgs"][i]), i / 50.0)
+    with spans.recording():
+        ti = fh.add_image(T(r["imgs"][i]), i / 50.0)
     _infos_equal(ti, ji)
     assert "local_ba" in ti
     t, j = handler_to_numpy(fh), jax_handler_tree(r["fh"])
