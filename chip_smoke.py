@@ -56,8 +56,10 @@ one, or without the port beside it.  Phases, each fatal on failure:
    ``vo_step`` (graphed) to frame 440: the bootstrap frame, its inliers
    and the Sim3-aligned ATE median over bench's window within the JAX CPU
    figure +10% (the bootstrap run checked is the second, which replays the
-   stage graphs the first captured, counted and profiled); 4 K1 and 1 K2
-   kernel events per frame over the last 5 (the profiler's);
+   stage graphs the first captured, counted and profiled); 1 K2 and 1-4
+   K1 kernel events per frame over the last 5 (the profiler's), as many
+   as counted (``_counted``: a mapping stage's K1 only on the replays that
+   ran its IF node);
 10. relocalization: a blank frame fails, the next frame relocalizes, then
    ``relocalize_frame_at_pose`` and ``global_ba``;
 11. ``FrameHandler`` on the CPU over the replay's 20 frames from the
@@ -121,8 +123,8 @@ one, or without the port beside it.  Phases, each fatal on failure:
    b from phase 5's state after frame 10 b, each tracking its next 20
    frames: no failed frame, each stream within 1e-3 m of its
    single-stream run with equal keyframes, 4 K1 and 1 K2 launches in the
-   capture call (the wrappers) and kernel events per replayed batched
-   step (the profiler's); 4 streams from frames 50-80 over 10 frames,
+   capture call (the wrappers) and, per replayed batched step, 1 K2 and
+   1-4 K1 kernel events (the profiler's) as counted; 4 streams from frames 50-80 over 10 frames,
    keyframe 87 in the last, graphed within 1e-5 m of the eager batched
    step with equal keyframes; no op of the eager batched step takes
    vmap's per-stream fallback; host ms per batched step (the median of 5
@@ -147,9 +149,9 @@ one, or without the port beside it.  Phases, each fatal on failure:
    first call for a state's storage runs the step and captures it, later
    calls replay it) in both presets, from a clone of phase 5's state
    before its first keyframe, through that keyframe and 5 frames past it:
-   within 1e-5 m of phase 5 at every frame, the same keyframe, 4 K1 and 1
-   K2 kernel events per frame (the profiler's: the wrappers count no
-   replay), 0 host syncs per frame, every state leaf's data pointer
+   within 1e-5 m of phase 5 at every frame, the same keyframe, 1 K2 and
+   1-4 K1 kernel events per frame as counted (the profiler's: the
+   wrappers count no replay), 0 host syncs per frame, every state leaf's data pointer
    unchanged, ``vo_scan_donated`` over the window within 1e-5 m of the
    step loop; then the keyframe step and the next by the eager step body
    and by a replay of ``vo_step_donated`` in turns: host ms (the replay's is
@@ -172,8 +174,8 @@ one, or without the port beside it.  Phases, each fatal on failure:
    captures, the rest replay): within 1e-6 m (fast) and 1e-5 m
    (accurate) of phase 5's eager step at every frame, the same
    keyframes, the limits of phase 5; 0 host syncs over the replayed
-   frames; per replayed frame, from the profiler, 4 K1 and 1 K2 kernel
-   events, under 50 host-side aten ops (eager: ~9k), device ops and
+   frames; per replayed frame, from the profiler, 1 K2 and 1-4 K1 kernel
+   events as counted, under 50 host-side aten ops (eager: ~9k), device ops and
    device ms; capture seconds and the graph's pool MB; host ms per frame
    of the eager body and of replays over frames 1-10, the median of 5
    interleaved rounds (every round printed), and each way's device busy
@@ -187,8 +189,9 @@ one, or without the port beside it.  Phases, each fatal on failure:
    host syncs, the input state equal to a clone of it, the capture call's
    4 K1 and 1 K2 launches (the wrappers); a second ``vo_scan`` from a
    clone makes no capture and gives the same outputs; per replayed frame
-   inside ``vo_scan`` 4 K1 and 1 K2 kernel events and under 50 host aten
-   ops; one ``vo_step`` call: 0 host syncs, 4 K1 and 1 K2 events, under
+   inside ``vo_scan`` 1 K2 and 1-4 K1 kernel events as counted and under
+   50 host aten ops; one ``vo_step`` call: 0 host syncs, 1 K2 and 1-4 K1
+   events as counted, under
    250 host aten ops, its copy in and copy out alone (host aten ops and
    device us); slot MB, capture s and pool MB;
 27. ``FrameHandler``'s jitted stages as CUDA graphs (``graphed.jit``),
@@ -312,7 +315,9 @@ K2_TOL = 1e-5
 K2_TRIALS = {128: 6, 256: 3}   # seeded perturbations at each feature count
 # K1 launches per frame on the full step: the reprojector's align windows,
 # the epipolar align2D windows, the keyframe feature tiles and the seed
-# detection tiles (each runs every frame, its result kept on keyframes)
+# detection tiles (each runs every frame of the eager step, its result kept
+# on keyframes; a graph replay runs the last three only inside the mapping
+# stages' IF nodes, on the frames that run them: ``_counted``)
 K1_PER_FRAME = 4
 # K2's operations per valid feature (bound_ms): the prologue of a level,
 # 16 px x (5 four-tap blends x 7 + 2 differences x 2 + 6 Jacobian
@@ -780,6 +785,16 @@ def _run_launches() -> dict:
     from rpg_svo_tpu_torch.core import graphed
     rep = graphed.replayed_launches()
     return {k: v + rep.get(k, 0) for k, v in _read_counts().items()}
+
+
+def _counted(fn):
+    """(fn(), the K1 and K2 launches made during fn as ``_run_launches``
+    counts them: a graph replay's launches inside a mapping stage's IF
+    node only where the node ran, read from the gate counters)."""
+    before = _run_launches()
+    out = fn()
+    after = _run_launches()
+    return out, {k: after[k] - before[k] for k in after}
 
 
 def _jit_captures() -> int:
@@ -1539,8 +1554,8 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
             st, o = step(st, B, j)
             outs.append(o)
         return st, outs
-    (st, rest), ev = _raw_profile(torch, lambda: steps(st, B, 1,
-                                                       STREAM_FRAMES))
+    ((st, rest), ev), replay_want = _counted(lambda: _raw_profile(
+        torch, lambda: steps(st, B, 1, STREAM_FRAMES)))
     outs = [o0] + rest
     replay_events = {k: ev[k] for k in ("tile_gather", "sparse_align")}
     t_wc = torch.stack([o.t_wc for o in outs]).cpu().numpy()   # (T, B, 3)
@@ -1568,9 +1583,10 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
     assert kf_equal and dt <= CPU_TOL_M, (dt, kf_frames)
     assert launches == {"tile_gather": K1_PER_FRAME, "sparse_align": 1}, \
         launches
-    assert replay_events == {
-        "tile_gather": K1_PER_FRAME * (STREAM_FRAMES - 1),
-        "sparse_align": STREAM_FRAMES - 1}, replay_events
+    assert replay_events == replay_want \
+        and replay_want["sparse_align"] == STREAM_FRAMES - 1 \
+        and replay_want["tile_gather"] <= K1_PER_FRAME * (STREAM_FRAMES - 1), \
+        (replay_events, replay_want)
 
     # --- a keyframe inside the batch: B streams from frames 50-80 over the
     # next STREAM_EVERY frames, the first keyframe (87) in the last;
@@ -1680,7 +1696,8 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
     for Bt in STREAM_BS:
         sb, j = runs[Bt]
         (_, _), syncs = _host_syncs(torch, lambda: step(sb, Bt, j))
-        _, ev = _raw_profile(torch, lambda: step(sb, Bt, j))
+        (_, ev), want = _counted(lambda: _raw_profile(
+            torch, lambda: step(sb, Bt, j)))
         prof_counts = {k: ev[k] for k in ("tile_gather", "sparse_align")}
         _, slot_mb, capture_s, pool_mb = slot_of[Bt]
         by_b[Bt] = {"host_ms_per_step": med[Bt],
@@ -1703,8 +1720,9 @@ def _streams_phase(snaps, imgs, fast_outs, cam, cfg, grid, shape) -> dict:
               f"syncs; slot {slot_mb:.1f} MB, capture {capture_s:.2f} s, "
               f"pool {pool_mb:.1f} MB"
               + "".join(f"\n#   {x}" for x in syncs), flush=True)
-        assert prof_counts == {"tile_gather": K1_PER_FRAME,
-                               "sparse_align": 1}, (Bt, prof_counts)
+        assert prof_counts == want and want["sparse_align"] == 1 \
+            and 1 <= want["tile_gather"] <= K1_PER_FRAME, \
+            (Bt, prof_counts, want)
         assert not syncs, f"streams B={Bt}: the batched step waits on the card"
         assert ev["host_aten_ops"] < GRAPH_MAX_CALL_OPS, (Bt, ev)
 
@@ -1817,7 +1835,8 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
                 same &= _state_ptrs(st) == ptrs
                 d_outs.append(out)
             return d_outs, syncs, same
-        (d_outs, syncs, same_storage), ev = _raw_profile(torch, window)
+        ((d_outs, syncs, same_storage), ev), counted = _counted(
+            lambda: _raw_profile(torch, window))
         pos = torch.stack([o.t_wc for o in d_outs]).cpu().numpy()
         ref = np.stack([outs[j - 1].t_wc.cpu().numpy() for j in frames])
         dt = float(np.abs(pos - ref).max())
@@ -1830,8 +1849,7 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
         scan_kfs = [j for j, f in zip(frames, s_outs.is_keyframe.tolist())
                     if f]
         launches = {key: ev[key] for key in ("tile_gather", "sparse_align")}
-        want = {"tile_gather": K1_PER_FRAME * len(frames),
-                "sparse_align": len(frames)}
+        want = counted
         print(f"# donated {preset}: frames {s + 1}-{frames[-1]} from a clone "
               f"of the state after frame {s} (the first a capture, then "
               f"replays): max |dt_wc| against phase 5 {dt:.3e} m (tol "
@@ -1842,7 +1860,9 @@ def _donated_phase(starts, imgs, cam, cfgs, grid, shape) -> dict:
               f"{scan_dt:.3e} m, keyframes {scan_kfs}", flush=True)
         assert np.isfinite(pos).all() and dt <= DONATED_TOL_M, (preset, dt)
         assert kfs == kfs_ref and kfs and kfs[0] == k, (preset, kfs, kfs_ref)
-        assert launches == want, (preset, launches)
+        assert launches == want and want["sparse_align"] == len(frames) \
+            and want["tile_gather"] <= K1_PER_FRAME * len(frames), \
+            (preset, launches, want)
         assert not any(syncs), (preset, syncs)
         assert same_storage, f"{preset}: a donated leaf moved"
         assert scan_dt <= DONATED_TOL_M and scan_kfs == kfs, (preset, scan_dt)
@@ -2028,7 +2048,8 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
         first_s = time.perf_counter() - t0
         _, key_capture_s, key_pool_mb = graphed.graphs()[-1]
         (st, outs2), syncs = _host_syncs(torch, lambda: scan(st, imgs[1:n - P]))
-        (st, outs3), ev = _raw_profile(torch, lambda: scan(st, imgs[n - P:n]))
+        ((st, outs3), ev), counted = _counted(lambda: _raw_profile(
+            torch, lambda: scan(st, imgs[n - P:n])))
         outs = _cat_outs(outs, outs2, outs3)
         pos = outs.t_wc.cpu().numpy()
         ref = np.stack([o.t_wc.cpu().numpy() for o in phase5_outs[preset][:n]])
@@ -2113,8 +2134,9 @@ def _graph_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
         lim = LIMITS_MM[preset]
         assert med <= lim[0] and mx <= lim[1], (preset, med, mx, lim)
         assert not syncs, (preset, syncs)
-        assert ev["tile_gather"] == K1_PER_FRAME * P \
-            and ev["sparse_align"] == P, (preset, ev)
+        assert ev["tile_gather"] == counted["tile_gather"] \
+            <= K1_PER_FRAME * P and ev["sparse_align"] == P \
+            == counted["sparse_align"], (preset, ev, counted)
         assert per["host_aten_ops"] < GRAPH_MAX_HOST_OPS, (preset, per)
         del st
     res["seconds"] = time.perf_counter() - t_phase
@@ -2172,13 +2194,16 @@ def _kept_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
         _, again = scan(_clone_state(src), imgs[:KEPT_AGAIN])
         no_capture = counts == (len(graphed.graphs()), len(graphed.slots()))
         again_dt = float(torch.abs(again.t_wc - outs.t_wc[:KEPT_AGAIN]).max())
-        _, e1 = _raw_profile(torch, lambda: scan(st, imgs[n:n + P]))
-        _, e2 = _raw_profile(torch, lambda: scan(st, imgs[n:n + 2 * P]))
+        (_, e1), c1 = _counted(lambda: _raw_profile(
+            torch, lambda: scan(st, imgs[n:n + P])))
+        (_, e2), c2 = _counted(lambda: _raw_profile(
+            torch, lambda: scan(st, imgs[n:n + 2 * P])))
         per = {k_: (e2[k_] - e1[k_]) / P for k_ in e1}
+        per_want = {k_: (c2[k_] - c1[k_]) / P for k_ in c1}
         step = functools.partial(fused.vo_step, st, imgs[n], cam, cfg, ncx,
                                  ncy, shape)
         (_, _), step_syncs = _host_syncs(torch, step)
-        _, call = _raw_profile(torch, step)
+        (_, call), call_want = _counted(lambda: _raw_profile(torch, step))
         # the copies alone: host aten ops from the profiler, device us
         # from CUDA-graph replays of them (the profiler may return no event
         # for so short a run)
@@ -2235,9 +2260,11 @@ def _kept_phase(seeded, imgs, phase5_outs, cam, cfgs, grid, shape,
         assert kept, f"{preset}: vo_scan wrote its input state"
         assert no_capture and again_dt == 0.0, (preset, again_dt)
         assert (per["tile_gather"], per["sparse_align"]) \
-            == (K1_PER_FRAME, 1), (preset, per)
+            == (per_want["tile_gather"], 1) \
+            and per_want["tile_gather"] <= K1_PER_FRAME, (preset, per)
         assert (call["tile_gather"], call["sparse_align"]) \
-            == (K1_PER_FRAME, 1), (preset, call)
+            == (call_want["tile_gather"], 1) \
+            and call_want["tile_gather"] <= K1_PER_FRAME, (preset, call)
         assert per["host_aten_ops"] < GRAPH_MAX_HOST_OPS, (preset, per)
         assert call["host_aten_ops"] < GRAPH_MAX_CALL_OPS, (preset, call)
         del st
@@ -3112,12 +3139,14 @@ def main() -> int:
         return outs
     b_outs = track(range(i_boot + 1, N_FRAMES - GRAPH_PROFILED))
     track_wrapped = _read_counts()
-    last, ev = _raw_profile(torch, lambda: track(
-        range(N_FRAMES - GRAPH_PROFILED, N_FRAMES)))
+    (last, ev), track_want = _counted(lambda: _raw_profile(torch, lambda: track(
+        range(N_FRAMES - GRAPH_PROFILED, N_FRAMES))))
     b_outs += last
     track_launches = {k_: ev[k_] for k_ in ("tile_gather", "sparse_align")}
-    assert track_launches == {"tile_gather": K1_PER_FRAME * GRAPH_PROFILED,
-                              "sparse_align": GRAPH_PROFILED}, track_launches
+    assert track_launches == track_want \
+        and track_want["sparse_align"] == GRAPH_PROFILED \
+        and track_want["tile_gather"] <= K1_PER_FRAME * GRAPH_PROFILED, \
+        (track_launches, track_want)
     est = torch.stack([o.t_wc for o in b_outs]).cpu().numpy()
     b_failed = [i_boot + 1 + q for q, o in enumerate(b_outs)
                 if bool(o.failed)]

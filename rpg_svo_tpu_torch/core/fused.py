@@ -33,10 +33,20 @@ step's graph is captured once per static signature and state storage,
 and ``vo_step`` and ``vo_scan`` step a graph-owned copy of their input
 state with that graph.
 
-The JAX step chooses branches with ``lax.cond``; here every branch runs
-and its result is kept or dropped with ``torch.where`` or a mask, so
-nothing in the step reads a value back to the host and the step can later
-be captured in a CUDA graph.  ``seed_first_frame_with_depth`` ports
+The JAX step chooses branches with ``lax.cond``; here each branch is
+written masked, its result kept or dropped with ``torch.where`` or a
+mask, so nothing in the step reads a value back to the host and the step
+is captured in a CUDA graph.  Inside the step's graph (``core/graphed.
+run``) the two mapping stages branch on the card: the depth-filter update
+(7) and the keyframe stages (8) are each the body of a CUDA-graph IF node
+on their own device predicate (``due_work``, ``is_kf``; ``graphed.gate``),
+so a replay runs them only on the frames that need them, with the masked
+form's results.  They stay masked, run every frame, outside a graph (the
+CPU, the eager run before a capture, the eager references) and wherever
+``cfg.shard_axis`` is set (the mesh programs: the stages hold collectives
+there); the keyframe stages also where they hold local BA (the accurate
+preset: its dense solve captures memory nodes, which a conditional body
+may not hold).  ``seed_first_frame_with_depth`` ports
 ``FrameHandler.set_first_frame_with_depth`` (core/pipeline.py:202-256) as
 a function returning a ``VOState`` (``core/pipeline.FrameHandler`` seeds
 through it), and ``state_from_handler`` starts the step from a
@@ -101,6 +111,26 @@ class StepOut(NamedTuple):
     R_fw: torch.Tensor          # (3, 3) rotation of T_f_w
 
 
+class _Tracked(NamedTuple):
+    """What the tracking phase hands the mapping stages and the finish;
+    every leaf a tensor, so that a stream batch carries it through
+    ``torch.func.vmap``."""
+    m: MapState
+    pad: PaddedPyramid
+    T_out: SE3
+    frame_id: torch.Tensor
+    rep: ReprojectResult
+    feat_f: torch.Tensor
+    feat_point: torch.Tensor
+    feat_valid: torch.Tensor
+    failed: torch.Tensor
+    n_obs: torch.Tensor         # pose optimisation's observations
+    is_kf: torch.Tensor
+    due_work: torch.Tensor      # the depth filter updates this frame
+    depth_mean: torch.Tensor
+    depth_min: torch.Tensor
+
+
 def frame_feature_cap(n_cells: int, max_fts: int) -> int:
     """Slots of the per-frame feature table: the max_fts budget rounded up
     to 128, at most the cell count rounded up to 8."""
@@ -150,15 +180,17 @@ def _structure_opt_fused(m: MapState, T: SE3, frame_id: torch.Tensor,
     return m._replace(pt=pt._replace(pos=pos, last_optim=last))
 
 
-def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
-                     feat_point, feat_valid, is_kf, depth_mean, depth_min,
-                     cam, cfg: Config, ncx: int, ncy: int,
-                     inplace: bool) -> MapState:
-    """Keyframe insertion with creation-time feature tiles, observation
-    binding and candidate promotion, local BA (loba_num_iter > 0), seed
-    detection in the unoccupied cells and seed init, and the map cap.
-    Each stage runs every frame; with ``is_kf`` False all of them leave
-    the map as it was."""
+def _keyframe_stages(m: MapState, t: _Tracked, cam, cfg: Config,
+                     ncx: int, ncy: int, inplace: bool) -> MapState:
+    """Stage 8 on the tracked frame ``t``: keyframe insertion with
+    creation-time feature tiles, observation binding and candidate
+    promotion, local BA (loba_num_iter > 0), seed detection in the
+    unoccupied cells and seed init, and the map cap.  Every write is
+    masked with ``t.is_kf``: where it is false they leave the map as it
+    was."""
+    pad, T_out, frame_id, rep, is_kf = t.pad, t.T_out, t.frame_id, t.rep, \
+        t.is_kf
+    feat_f, feat_point, feat_valid = t.feat_f, t.feat_point, t.feat_valid
     F = feat_point.shape[0]
     C = ncx * ncy
     P = m.pt.pos.shape[0]
@@ -216,7 +248,7 @@ def _keyframe_stages(m: MapState, pad, T_out: SE3, frame_id, rep, feat_f,
     m = df.init_seeds_from_detection(
         m, slot, {"px": dpx, "score": det["score"][sel], "level": dlevel,
                   "valid": ok, "tile": dtile, "tile_xy0": dxy0},
-        cam, depth_mean, 0.5 * depth_min,
+        cam, t.depth_mean, 0.5 * t.depth_min,
         min_score=cfg.triang_min_corner_score, enable=is_kf,
         inplace=inplace)
 
@@ -234,11 +266,25 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
              ncx: int, ncy: int, img_shape: Tuple[int, int],
              inplace: bool) -> Tuple[VOState, StepOut]:
     """The step of ``vo_step`` and ``vo_step_donated``; ``inplace`` writes
-    the pools' rows in place.  With spans on, each stage is a span
+    the pools' rows in place.  Three phases, which the stream batch
+    (``parallel/streams.py``) runs too: ``_track`` (stages 1-6 and the
+    mapping predicates), ``_mapping`` (stages 7-8, each a gate on its
+    predicate) and ``_finish``.  With spans on, each stage is a span
     (``core/spans.py``): pyramid_creation, sparse_img_align, reproject,
     pose_optimizer, quality_gates, point_optimizer, kf_policy,
     depth_filter, keyframe (split by local_ba in the accurate preset);
     captured into a graph, their boundaries are event nodes."""
+    t = _track(state, img, cam, cfg, ncx, ncy, img_shape, inplace)
+    m = _mapping(t, cam, cfg, ncx, ncy, inplace)
+    if spans.ON:
+        spans.end()
+    return _finish(state, t, m)
+
+
+def _track(state: VOState, img: torch.Tensor, cam, cfg: Config, ncx: int,
+           ncy: int, img_shape: Tuple[int, int], inplace: bool) -> _Tracked:
+    """Stages 1-6, the keyframe decision and whether the depth filter
+    updates this frame; leaves the span ``depth_filter`` open."""
     abl = frozenset(cfg.ablate)
     if abl - ABLATABLE:
         raise NotImplementedError(
@@ -387,7 +433,7 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
 
     # --- 7. depth filter: every df_update_every-th frame and on keyframes
     # (the reference's mapping-queue drops, depth_filter.cpp:82-97), when
-    # some seed has work; a masked update is an exact no-op
+    # some seed has work (``_mapping`` runs it)
     if spans.ON:
         spans.switch("depth_filter", dev)
     if "df" not in abl:
@@ -398,37 +444,84 @@ def _vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
             due = torch.ones_like(is_kf)
         due_work = due & df.has_update_work(m, T_out, cam,
                                             max_n_kfs=cfg.df_max_kf_age)
-        upd = df.update_seeds_fields(
-            m, pad, T_out, cam, max_n_kfs=cfg.df_max_kf_age,
-            conv_thresh=cfg.seed_convergence_sigma2_thresh,
-            max_steps=cfg.epi_max_steps, update_k=cfg.df_update_k,
-            enable=due_work, short_steps=cfg.epi_short_steps,
-            long_k=cfg.epi_long_k, max_level=cfg.n_pyr_levels - 1,
-            scan_rows=cfg.epi_scan_rows, shard_axis=cfg.shard_axis)
-        m = df.apply_seed_update(m, upd, inplace)
+    else:
+        due_work = torch.zeros((), dtype=torch.bool, device=dev)
+    if "kf" in abl:
+        depth_mean = depth_min = torch.zeros((), device=dev)
+    return _Tracked(m, pad, T_out, frame_id, rep, feat_f, feat_point,
+                    feat_valid, failed, pres.n_obs, is_kf, due_work,
+                    depth_mean, depth_min)
 
-    # --- 8. keyframe insertion, binding, local BA, seeds, map cap; every
-    # write is masked with is_kf
+
+def _depth_filter(m: MapState, t: _Tracked, cam, cfg: Config,
+                  inplace: bool) -> MapState:
+    """Stage 7, the seed update, masked by ``t.due_work``: an exact no-op
+    where it is false."""
+    upd = df.update_seeds_fields(
+        m, t.pad, t.T_out, cam, max_n_kfs=cfg.df_max_kf_age,
+        conv_thresh=cfg.seed_convergence_sigma2_thresh,
+        max_steps=cfg.epi_max_steps, update_k=cfg.df_update_k,
+        enable=t.due_work, short_steps=cfg.epi_short_steps,
+        long_k=cfg.epi_long_k, max_level=cfg.n_pyr_levels - 1,
+        scan_rows=cfg.epi_scan_rows, shard_axis=cfg.shard_axis)
+    return df.apply_seed_update(m, upd, inplace)
+
+
+def _mapping(t: _Tracked, cam, cfg: Config, ncx: int, ncy: int,
+             inplace: bool, batched: bool = False) -> MapState:
+    """Stages 7-8 on the tracked frame (a stream batch's, ``batched``):
+    the depth-filter update where ``t.due_work`` holds and the keyframe
+    stages where ``t.is_kf`` does, each masked by its predicate and a
+    ``graphed.gate`` on it, so that a step captured on the card runs it
+    only on the frames that need it.  Both stay masked, every frame,
+    where a mesh shards the step (``cfg.shard_axis``): they hold
+    collectives there, and a rank that skipped a node its peers ran would
+    hang them.  The keyframe stages also stay masked where they hold local
+    BA (``cfg.loba_num_iter``): its dense solve (``torch.linalg.solve_ex``)
+    captures memory-allocation nodes, which the card refuses in the body
+    of a conditional node."""
+    abl = frozenset(cfg.ablate)
+    m = t.m
+    if "df" not in abl:
+        m = _gated("depth_filter", t.due_work, functools.partial(
+            _depth_filter, cam=cam, cfg=cfg, inplace=inplace), m, t,
+            batched, not cfg.shard_axis)
     if spans.ON:
-        spans.switch("keyframe", dev)
+        spans.switch("keyframe", t.frame_id.device)
     if "kf" not in abl:
-        m = _keyframe_stages(m, pad, T_out, frame_id, rep, feat_f, feat_point,
-                             feat_valid, is_kf, depth_mean, depth_min, cam,
-                             cfg, ncx, ncy, inplace)
-    if spans.ON:
-        spans.end()
+        m = _gated("keyframe", t.is_kf, functools.partial(
+            _keyframe_stages, cam=cam, cfg=cfg, ncx=ncx, ncy=ncy,
+            inplace=inplace),
+            m, t, batched, not cfg.shard_axis and cfg.loba_num_iter == 0)
+    return m
 
-    new_stage = torch.where(failed, STAGE_RELOC, STAGE_DEFAULT) \
+
+def _gated(name: str, pred: torch.Tensor, fn, m: MapState, t: _Tracked,
+           batched: bool, branch: bool) -> MapState:
+    """``fn(m, t)`` as the gate ``name`` on ``pred`` (``branch``: an IF
+    node in a graph); for a batch, on any stream's ``pred``, with the
+    streams running ``fn`` under vmap inside the gate, each still masked
+    by its own."""
+    if batched:
+        return graphed.gate(name, torch.any(pred),
+                            lambda m: torch.func.vmap(fn)(m, t), m, branch)
+    return graphed.gate(name, pred, lambda m: fn(m, t), m, branch)
+
+
+def _finish(state: VOState, t: _Tracked, m: MapState
+            ) -> Tuple[VOState, StepOut]:
+    """The stage transition, the new state and the step's outputs."""
+    new_stage = torch.where(t.failed, STAGE_RELOC, STAGE_DEFAULT) \
         .to(torch.int32)
-    num_obs = torch.where(failed, state.num_obs_last, pres.n_obs) \
+    num_obs = torch.where(t.failed, state.num_obs_last, t.n_obs) \
         .to(torch.int32)
     new_state = VOState(
-        m=m, pad=pad, R=T_out.R, t=T_out.t, frame_id=frame_id,
-        feat_px=rep.feat_px, feat_f=feat_f, feat_level=rep.feat_level,
-        feat_point=feat_point, feat_valid=feat_valid, stage=new_stage,
-        num_obs_last=num_obs, scrub_pending=is_kf)
-    out = StepOut(rep.n_matches, pres.n_obs, is_kf, failed, new_stage,
-                  T_out.inverse().t, T_out.R)
+        m=m, pad=t.pad, R=t.T_out.R, t=t.T_out.t, frame_id=t.frame_id,
+        feat_px=t.rep.feat_px, feat_f=t.feat_f, feat_level=t.rep.feat_level,
+        feat_point=t.feat_point, feat_valid=t.feat_valid, stage=new_stage,
+        num_obs_last=num_obs, scrub_pending=t.is_kf)
+    out = StepOut(t.rep.n_matches, t.n_obs, t.is_kf, t.failed, new_stage,
+                  t.T_out.inverse().t, t.T_out.R)
     return new_state, out
 
 
@@ -459,19 +552,6 @@ def vo_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
         _static_args(cam, cfg, ncx, ncy, img_shape), state, img)
 
 
-def write_back(state, new) -> None:
-    """Every leaf of ``new`` into the storage of the same leaf of
-    ``state`` (a leaf already there is left alone); a leaf of another
-    shape or dtype raises."""
-    def put(old, now):
-        if now.shape != old.shape or now.dtype != old.dtype:
-            raise ValueError(f"a donated leaf {tuple(old.shape)} {old.dtype}"
-                             f" came back {tuple(now.shape)} {now.dtype}")
-        if now.data_ptr() != old.data_ptr():
-            old.copy_(now)
-    pytree.tree_map(put, state, new)
-
-
 def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                   ncx: int, ncy: int,
                   img_shape: Tuple[int, int]) -> Tuple[VOState, StepOut]:
@@ -484,7 +564,7 @@ def _donated_step(state: VOState, img: torch.Tensor, cam, cfg: Config,
                         inplace=True)
     if spans.ON:
         spans.begin("write_back", state.R.device)
-    write_back(state, new)
+    graphed.write_back(state, new)
     if spans.ON:
         spans.end()
     return state, out

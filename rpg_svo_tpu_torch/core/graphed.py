@@ -51,6 +51,14 @@ on holds the step's stage boundaries as event nodes, and every replay of
 it yields that frame's stage spans; one captured with them off holds
 none.  The MB a slot copies in and out are always counted
 (``kept_copy_stats``).
+
+A stage that the step runs masked on a device predicate may be a
+``gate`` (the fused step's depth-filter update and keyframe stages): in a
+``run`` capture it is a CUDA-graph IF node on that predicate
+(``csrc/graph_gate.cu``), elsewhere the masked stage itself; its counters
+(``gate_stats``) are kept on the card.  A launch recorded inside a gate's
+body counts only on the replays that ran the body (``replayed_launches``
+reads the counters).
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ class _Graph(NamedTuple):
     capture_s: float            # the capture alone, after the eager step
     pool_mb: float              # device memory the capture reserved
     marks: object               # its span boundaries (spans.Marks) or None
+    gates: object = None        # its gates' memory pool (_Gates) or None
 
 
 class _Slot(NamedTuple):
@@ -162,10 +171,12 @@ def _capture(step: Callable, state, img: torch.Tensor):
         static_img = torch.empty(img.shape, dtype=img.dtype, device=dev)
         static_img.copy_(img)
     marks = spans.Marks(dev) if spans.ON else None
-    c = _capture_graph(step, (state, static_img), {}, dev, marks)
+    c = _capture_graph(step, (state, static_img), {}, dev, marks,
+                       gates=True)
     return c.eager[1], _Graph(c.graph, static_img, c.out[1], c.launches,
                               c.capture_s, c.pool_mb,
-                              marks if marks and marks.events else None)
+                              marks if marks and marks.events else None,
+                              c.gates)
 
 
 def _copy_leaves(dst: list, src: list) -> None:
@@ -433,14 +444,16 @@ class _Capture(NamedTuple):
     launches: dict              # kernel launches recorded, by kernel
     capture_s: float            # the capture alone, after the eager run
     pool_mb: float              # device memory the capture reserved
+    gates: object = None        # the gates' memory pool (_Gates) or None
 
 
 def _capture_graph(fn: Callable, args, kwargs, dev: torch.device,
-                   marks=None) -> _Capture:
+                   marks=None, gates: bool = False) -> _Capture:
     """``fn(*args, **kwargs)`` run eagerly on a side stream (it warms the
     kernels, the device tables, the allocator and any NCCL communicator),
     then captured under sync-debug "error"; span boundaries inside the
-    capture go into ``marks`` (``spans.capturing``; None: nowhere)."""
+    capture go into ``marks`` (``spans.capturing``; None: nowhere).  With
+    ``gates`` each ``gate`` of the capture is an IF node."""
     with torch.cuda.device(dev):
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -451,6 +464,8 @@ def _capture_graph(fn: Callable, args, kwargs, dev: torch.device,
         for t in pytree.tree_leaves(eager):
             if isinstance(t, torch.Tensor):
                 t.record_stream(cur)
+        ctx = _Gates(torch.cuda.MemPool(), _body_stream(dev)) if gates \
+            else None
         graph = torch.cuda.CUDAGraph()
         launches: dict = {}
         t0 = time.perf_counter()
@@ -460,11 +475,11 @@ def _capture_graph(fn: Callable, args, kwargs, dev: torch.device,
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             reserved = torch.cuda.memory_reserved()
             with _sync_error(), _tracing(), _recording(launches), \
-                    spans.capturing(marks):
+                    spans.capturing(marks), _gating(ctx):
                 out = fn(*args, **kwargs)
         return _Capture(eager, graph, out, launches,
                         time.perf_counter() - t0,
-                        (torch.cuda.memory_reserved() - reserved) / 1e6)
+                        (torch.cuda.memory_reserved() - reserved) / 1e6, ctx)
 
 
 # kernel launches made by graph replays, by kernel.  A kernel's wrapper
@@ -507,8 +522,205 @@ def _replay_graph(graph, launches: dict, device: torch.device,
 
 def replayed_launches() -> dict:
     """Kernel launches made by graph replays since ``reset_jit_counts``,
-    by kernel."""
-    return dict(_replayed)
+    by kernel: those outside any gate at every replay, those inside a
+    gate's body on the replays that ran it (read from the gate counters,
+    a wait for the card when a graph has gated launches)."""
+    out = dict(_replayed)
+    rows = [(k, i) for k, i in _gate_rows.items() if k[2]]
+    if rows:
+        counts = {dev: t.tolist() for dev, t in _gate_tables.items()}
+        for (dev, _, launches), i in rows:
+            ran = counts[dev][i][1]
+            for kernel, n in launches if ran else ():
+                out[kernel] = out.get(kernel, 0) + n * ran
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gate: a stage that runs only where a device predicate holds
+#
+# The step's mapping stages run on some frames only (a depth-filter update
+# every second frame, the keyframe stages on ~1%).  JAX picks them with
+# ``lax.cond``; the port's step writes them masked, so that they run in
+# every frame and leave the map as it was where their predicate is false,
+# and the step needs no host read.  ``gate(name, pred, body, leaves)`` is
+# such a masked stage: ``body(leaves)`` returns the new leaves, equal to
+# ``leaves`` wherever ``pred`` is false.
+#
+# Outside a ``run`` capture (the CPU, the eager run before a capture, an
+# eager reference, under vmap) it calls the body: the masked form.  Inside
+# one it captures the body into the body of a CUDA-graph IF node on
+# ``pred`` (``csrc/graph_gate.cu``: a one-thread kernel sets the node's
+# condition from ``pred`` at every replay), on a stream of its own, its
+# tensors in a memory pool that the graph keeps.  A replay then runs the
+# body only where ``pred`` holds; where it runs, every mask in it passes,
+# so its writes are the masked form's.  Whatever the rest of the graph
+# reads after the node must be in the same storage whichever way the node
+# went: the body ends by copying every leaf it replaced into the storage
+# that leaf had before the node, and ``gate`` returns ``leaves``.  A gate
+# inside a gate's body runs masked.
+#
+# ``gate_stats()`` counts, per gate, the steps that reached it and those
+# on which its body ran (eager: its predicate held), on the card: a row of
+# two int64 counters per gate name and set of kernel launches its body
+# makes, incremented by the graph itself, read on the host only when
+# asked for.
+
+
+class _Gates(NamedTuple):
+    pool: object                # torch.cuda.MemPool of the bodies' tensors
+    stream: object              # the stream the bodies are captured on
+
+
+GATE_ROWS = 64
+_gate_tables: dict = {}         # device -> (GATE_ROWS, 2) int64 counters
+_gate_rows: dict = {}           # (device, name, launches) -> row
+_body_streams: dict = {}        # device -> the bodies' stream
+
+
+def _body_stream(dev: torch.device):
+    """The stream gate bodies are captured on: one of the package's own
+    (no capture of PyTorch's can be using it), made once per card."""
+    s = _body_streams.get(dev)
+    if s is None:
+        import ctypes
+        from rpg_svo_tpu_torch.ops import cuda_build
+        ptr = ctypes.c_void_p()
+        fn = cuda_build.function("gate_stream",
+                                 (ctypes.POINTER(ctypes.c_void_p),),
+                                 "graph_gate")
+        cuda_build.check(fn(ctypes.byref(ptr)), "gate_stream")
+        s = _body_streams[dev] = torch.cuda.ExternalStream(ptr.value,
+                                                           device=dev)
+    return s
+
+
+@contextlib.contextmanager
+def _gating(ctx):
+    prev = getattr(_local, "gates", None)
+    _local.gates = ctx
+    try:
+        yield
+    finally:
+        _local.gates = prev
+
+
+def _row(dev: torch.device, name: str, launches) -> torch.Tensor:
+    """The counters (reached, ran) of gate ``name`` whose body makes
+    ``launches``; the card's table is made outside any capture (the eager
+    run before it passes every gate first)."""
+    key = (dev, name, launches)
+    i = _gate_rows.get(key)
+    if i is None:
+        table = _gate_tables.get(dev)
+        if table is None:
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"gate {name!r}: no counters on {dev} "
+                                   f"before its first capture")
+            table = _gate_tables[dev] = torch.zeros(
+                (GATE_ROWS, 2), dtype=torch.int64, device=dev)
+        i = sum(k[0] == dev for k in _gate_rows)
+        if i >= GATE_ROWS:
+            raise RuntimeError(f"more than {GATE_ROWS} gate counters on "
+                               f"{dev}")
+        _gate_rows[key] = i
+    return _gate_tables[dev][i]
+
+
+def gate(name: str, pred: torch.Tensor, body: Callable, leaves,
+         branch: bool = True):
+    """``body(leaves)``, a stage whose writes are masked by the 0-d bool
+    ``pred``; inside a ``run`` capture, with ``branch``, an IF node on
+    ``pred`` whose body writes the new leaves into ``leaves``' storage
+    (see the notes above).  Counted in ``gate_stats`` under ``name`` (not
+    under vmap)."""
+    ctx = getattr(_local, "gates", None)
+    if ctx is None or not branch or is_batched(pred):
+        if not is_batched(pred):
+            row = _row(pred.device, name, ())
+            row[0].add_(1)
+            row[1].add_(pred.reshape(()))
+        return body(leaves)
+    return _branch(ctx, name, pred, body, leaves)
+
+
+def _branch(ctx: _Gates, name: str, pred: torch.Tensor, body: Callable,
+            leaves):
+    import ctypes
+    from rpg_svo_tpu_torch.ops import cuda_build
+    if pred.dtype is not torch.bool or pred.numel() != 1:
+        raise ValueError(f"gate {name!r}: the predicate must be one bool, "
+                         f"not {pred.dtype} {tuple(pred.shape)}")
+    dev = pred.device
+    pred = pred.reshape(()).contiguous()
+    open_ = cuda_build.function(
+        "gate_open", (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p),
+        "graph_gate")
+    close = cuda_build.function("gate_close", (ctypes.c_void_p,),
+                                "graph_gate")
+    cuda_build.check(open_(torch.cuda.current_stream(dev).cuda_stream,
+                           pred.data_ptr(), ctx.stream.cuda_stream),
+                     f"gate {name!r}: gate_open")
+    launches: dict = {}
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        # a conditional body may hold no event node: span boundaries in
+        # it record nothing
+        with torch.cuda.stream(ctx.stream), _recording(launches), \
+                _gating(None), spans.capturing(None):
+            # the body's tensors go to the gates' pool (the graph's own
+            # pool takes only the capturing stream's allocations)
+            torch._C._cuda_beginAllocateCurrentThreadToPool(idx, ctx.pool.id)
+            try:
+                write_back(leaves, body(leaves))
+                row = _row(dev, name, tuple(sorted(launches.items())))
+                row[1].add_(1)
+            finally:
+                torch._C._cuda_endAllocateToPool(idx, ctx.pool.id)
+                torch._C._cuda_releasePool(idx, ctx.pool.id)
+    finally:
+        err = close(ctx.stream.cuda_stream)
+    cuda_build.check(err, f"gate {name!r}: gate_close")
+    row[0].add_(1)
+    return leaves
+
+
+def write_back(state, new) -> None:
+    """Every leaf of ``new`` into the storage of the same leaf of
+    ``state`` (a leaf already there is left alone); a leaf of another
+    shape or dtype, or one in the storage of another leaf of ``state``,
+    raises."""
+    olds, spec = pytree.tree_flatten(state)
+    news, nspec = pytree.tree_flatten(new)
+    if nspec != spec:
+        raise ValueError(f"a donated state came back as {nspec}")
+    at: dict = {}
+    for i, x in enumerate(olds):
+        at.setdefault(x.data_ptr(), set()).add(i)
+    for i, (old, now) in enumerate(zip(olds, news)):
+        if now.shape != old.shape or now.dtype != old.dtype:
+            raise ValueError(f"a donated leaf {tuple(old.shape)} {old.dtype}"
+                             f" came back {tuple(now.shape)} {now.dtype}")
+        here = at.get(now.data_ptr())
+        if here is None:
+            old.copy_(now)
+        elif i not in here:
+            raise ValueError(f"leaf {i} came back in the storage of leaves "
+                             f"{sorted(here)}")
+
+
+def gate_stats() -> dict:
+    """Per gate name: ``reached``, the steps and replays that reached the
+    gate, and ``ran``, those on which its body ran (on a graph replay) or
+    its predicate held (eager), since ``reset_jit_counts``.  Reads the
+    counters from the card."""
+    counts = {dev: t.tolist() for dev, t in _gate_tables.items()}
+    out: dict = {}
+    for (dev, name, _), i in _gate_rows.items():
+        d = out.setdefault(name, {"reached": 0, "ran": 0})
+        d["reached"] += counts[dev][i][0]
+        d["ran"] += counts[dev][i][1]
+    return out
 
 
 class Jitted:
@@ -676,9 +888,12 @@ def jit_stats() -> dict:
 
 def reset_jit_counts() -> None:
     """Zero every function's capture, replay, eviction and copy counts,
-    the graph replays' kernel launches and the slots' copy counts."""
+    the graph replays' kernel launches, the slots' copy counts and the
+    gate counters (on the card's stream, no wait)."""
     _replayed.clear()
     _kept.update(in_copied_mb=0.0, out_copied_mb=0.0)
+    for t in _gate_tables.values():
+        t.zero_()
     for f in _jitted:
         f.captures = f.replays = f.evictions = 0
         f.in_copied_mb = f.out_copied_mb = 0.0

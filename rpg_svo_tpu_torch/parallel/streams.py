@@ -4,16 +4,25 @@ Port of ``rpg_svo_tpu/parallel/streams.py``: serving many camera streams
 at once, in two forms over a ``VOState`` with a leading stream axis.
 
 - ``vmapped_vo_step``: B streams in one step on one card,
-  ``torch.func.vmap`` over the fused step.  The step already runs every
-  branch and selects (it reads nothing back to the host), so the batch
-  keeps every stream's semantics; kernels K1 and K2 are custom ops whose
-  vmap rules launch once for all B streams (``ops/tiles.py``,
-  ``ops/align_kernel.py``), so a batched step issues about as many
-  launches as one stream's.  On the card the batched step is one CUDA
-  graph replay per step, one graph-owned slot per B (core/graphed.py):
-  the functional vmapped step followed, outside the vmap, by the donated
-  step's write of every new stacked leaf into the slot's (an in-place
-  write of a batch fails under vmap).
+  ``torch.func.vmap`` over the fused step's phases (``core/fused.py``).
+  The step masks every stage by its predicate and reads nothing back to
+  the host, so the batch keeps every stream's semantics; kernels K1 and
+  K2 are custom ops whose vmap rules launch once for all B streams
+  (``ops/tiles.py``, ``ops/align_kernel.py``), so a batched step issues
+  about as many launches as one stream's.  Tracking and the finish run
+  under vmap; each mapping stage (the depth-filter update, the keyframe
+  stages) is a ``graphed.gate`` on the ``any`` of the streams' predicates,
+  opened outside the vmap, with the streams under vmap inside it: on the
+  card's graph the stage runs only in steps where some stream needs it,
+  and a stream that does not is left as it was by its own masks.  On the
+  card the batched step is one CUDA graph replay per step, one
+  graph-owned slot per B (core/graphed.py): the functional batched step
+  followed, outside the vmap, by the donated step's write of every new
+  stacked leaf into the slot's (an in-place write of a batch fails under
+  vmap); a gate's body writes its stage's results into the stacked
+  leaves the same way, inside the gate.  Where a mesh shards the step
+  (``cfg.shard_axis``) the stages stay masked, with no IF node, and so do
+  the keyframe stages where they hold local BA (``fused._mapping``).
 - ``multistream_step`` / ``multistream_scan``: one stream per rank along
   the mesh's ``dp`` axis, each rank stepping its own stream.  They issue
   no collective: streams are independent, so nothing crosses a rank (the
@@ -46,12 +55,18 @@ def index_state(batched, i: int):
 
 def _vmapped_step(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
                   ncy: int, img_shape: Tuple[int, int]):
-    """The batched step, eager and functional: ``torch.func.vmap`` of the
-    out-of-place step body."""
-    def step(s, img):
-        return fused._vo_step(s, img, cam, cfg, ncx, ncy, img_shape,
-                              inplace=False)
-    return torch.func.vmap(step)(states, imgs)
+    """The batched step, functional: the out-of-place step body's phases,
+    tracking and finish under ``torch.func.vmap``, the mapping stages
+    each a gate on any stream's predicate (``fused._mapping``) with the
+    streams under vmap inside it."""
+    def track(s, img):
+        return fused._track(s, img, cam, cfg, ncx, ncy, img_shape,
+                            inplace=False)
+    t = torch.func.vmap(track)(states, imgs)
+    m = fused._mapping(t, cam, cfg, ncx, ncy, inplace=False, batched=True)
+    if spans.ON:
+        spans.end()
+    return torch.func.vmap(fused._finish)(states, t, m)
 
 
 def _vmapped_donated(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
@@ -62,7 +77,7 @@ def _vmapped_donated(states, imgs: torch.Tensor, cam, cfg: Config, ncx: int,
     new, out = _vmapped_step(states, imgs, cam, cfg, ncx, ncy, img_shape)
     if spans.ON:
         spans.begin("write_back", imgs.device)
-    fused.write_back(states, new)
+    graphed.write_back(states, new)
     if spans.ON:
         spans.end()
     return states, out

@@ -547,10 +547,12 @@ def test_second_call_with_the_same_state_makes_no_capture(graph_runs):
 
 @pytest.mark.cuda
 def test_graph_replay_launches_each_kernel(graph_runs):
-    """A capture call launches K1 four times and K2 once (its eager step;
-    the capture launches nothing), a replay as many by the profiler's
-    kernel events; the wrappers count no replay, and graphed counts each
-    replay's recorded launches."""
+    """A capture call launches K1 four times and K2 once (its eager step,
+    every stage masked; the capture launches nothing); a replay launches
+    K2 once and K1 once outside the mapping stages' IF nodes, and inside
+    them on the frames that run them (the gate counters), as many as the
+    profiler's kernel events; the wrappers count no replay, and graphed
+    counts each replay's launches."""
     from rpg_svo_tpu_torch.core import graphed
     r = graph_runs["fast"]
     ncx, ncy = r["grid"]
@@ -567,12 +569,20 @@ def test_graph_replay_launches_each_kernel(graph_runs):
             align_kernel.sparse_align_kernel.launches) \
         == (counts[0] + 4, counts[1] + 1)
     assert graphed.replayed_launches() == {}
-    assert _kernel_events(step(GRAPH_FROM + 2)) == (4, 1)
+    for i in range(GRAPH_FROM + 2, GRAPH_FROM + GRAPH_FRAMES + 1):
+        before = graphed.replayed_launches()
+        ran = {k: v["ran"] for k, v in graphed.gate_stats().items()}
+        ev = _kernel_events(step(i))
+        rep = graphed.replayed_launches()
+        now = {k: v["ran"] - ran[k] for k, v in graphed.gate_stats().items()}
+        assert ev == (rep["tile_gather"] - before.get("tile_gather", 0),
+                      rep["sparse_align"] - before.get("sparse_align", 0))
+        assert ev == (1 + now["depth_filter"] + 2 * now["keyframe"], 1), \
+            (i, ev, now)
     assert (tiles.tile_gather_kernel.launches,
             align_kernel.sparse_align_kernel.launches) \
         == (counts[0] + 4, counts[1] + 1)
-    assert graphed.replayed_launches() == {"tile_gather": 4,
-                                           "sparse_align": 1}
+    assert graphed.gate_stats()["keyframe"]["ran"] > 0
 
 
 @pytest.mark.cuda
@@ -668,9 +678,10 @@ def test_graphed_vmapped_step_matches_the_eager_batch(graph_runs):
     """vmapped_vo_step at B = 4 on the card (one graph for B's slot) over
     10 frames from the states after frames 50, 60, 70 and 80: each stream
     within 1e-5 m of the eager batched step with the same keyframes (87 in
-    the last); a replayed batched step runs 4 K1 and 1 K2 kernels (the
-    profiler's events) and waits on the card nowhere (sync-debug
-    "error")."""
+    the last); a replayed batched step runs 1 K2 kernel and 1-4 K1 (the
+    mapping stages' K1 only in steps where a stream runs them), as many
+    as graphed counts, by the profiler's events, and waits on the card
+    nowhere (sync-debug "error")."""
     from rpg_svo_tpu_torch.parallel import streams
     r = graph_runs["fast"]
     ncx, ncy = r["grid"]
@@ -693,7 +704,13 @@ def test_graphed_vmapped_step_matches_the_eager_batch(graph_runs):
     def step():
         return streams.vmapped_vo_step(sg, imgs, r["cam"], r["cfg"], ncx,
                                        ncy, SHAPE)
-    assert _kernel_events(step) == (4, 1)
+    from rpg_svo_tpu_torch.core import graphed
+    before = graphed.replayed_launches()
+    ev = _kernel_events(step)
+    rep = graphed.replayed_launches()
+    assert ev[1] == 1 and 1 <= ev[0] <= 4, ev
+    assert ev == (rep["tile_gather"] - before["tile_gather"],
+                  rep["sparse_align"] - before["sparse_align"])
     torch.cuda.set_sync_debug_mode("error")
     try:
         step()

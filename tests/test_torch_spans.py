@@ -339,22 +339,27 @@ def test_graph_stage_spans_cover_the_replay(card, batch):
 
 
 def _event_nodes(graph) -> int:
-    """Event-record nodes of a captured graph (kept by ``keep_graph``)."""
+    """Event-record nodes of a captured step graph (kept by
+    ``keep_graph``), which holds the mapping stages' two IF nodes; read
+    with libcuda's ``cuGraphNodeGetType`` (the runtime's
+    ``cudaGraphNodeGetType`` fails on a conditional node that another
+    runtime added)."""
     import ctypes
-    rt = ctypes.CDLL("libcudart.so.12")
+    cu = ctypes.CDLL("libcuda.so.1")
     h = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
-    assert rt.cudaGraphGetNodes(h, None, ctypes.byref(n)) == 0
+    assert cu.cuGraphGetNodes(h, None, ctypes.byref(n)) == 0
     nodes = (ctypes.c_void_p * n.value)()
-    assert rt.cudaGraphGetNodes(h, nodes, ctypes.byref(n)) == 0
+    assert cu.cuGraphGetNodes(h, nodes, ctypes.byref(n)) == 0
     kinds = []
     for node in nodes:
         t = ctypes.c_int(-1)
-        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
-                                       ctypes.byref(t)) == 0
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(t)) == 0
         kinds.append(t.value)
-    assert n.value > 1000
-    return kinds.count(7)          # cudaGraphNodeTypeEventRecord
+    assert n.value > 100
+    assert kinds.count(13) == 2    # CU_GRAPH_NODE_TYPE_CONDITIONAL
+    return kinds.count(7)          # CU_GRAPH_NODE_TYPE_EVENT_RECORD
 
 
 @pytest.mark.cuda
